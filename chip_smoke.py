@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Run from the root of the repository. Four phases, none of whose failures
+Run from the root of the repository. Six phases, none of whose failures
 is caught:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-     and the build of the CUDA fuse kernel from csrc/ with nvcc;
+     and the builds of the CUDA kernels from csrc/ (the fuse kernel and
+     the Hamming kernel, one nvcc each, started together);
   2. the kernel against its plain PyTorch version at the main path's
      shapes: after 10 fused frames of the VGA synthetic orbit at the
      offline_eval defaults (1 cm voxels, 2^17 blocks, 2^19 hash slots,
@@ -17,7 +18,17 @@ is caught:
   3. the main path: `ra_slam_tpu_torch.pipeline.offline_eval` over 60
      frames on cuda, with the kernel's launch count read around it, and
      the dumped map checked against the room's known geometry;
-  4. a JSON line of the kernels' numbers, then the result line.
+  4. the Hamming kernel against its plain PyTorch version, exactly equal,
+     at the bench case 1000 x 20000 with random words, at the tracking
+     shape (the frame's descriptors against the landmark map after a few
+     tracked VGA frames), at a ragged shape and with an empty side;
+     median CUDA-event and profiler device times of both, bytes moved and
+     the share of 3.35 TB/s;
+  5. the tracking path: `ra_slam_tpu_torch.eval.trajectory_bench` at
+     640x480, --no-loop, 150 frames on cuda, with the Hamming kernel's
+     launch count read around it; 0 lost frames, ATE <= 0.05 m (the
+     repo's north-star bound) and one launch per frame at least;
+  6. a JSON line of the kernels' numbers, then the result line.
 
 It exits non-zero, printing no result, when torch sees no CUDA device
 or when the package is not beside it.
@@ -30,12 +41,17 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 FRAMES_BEFORE = 10  # fused frames before the kernel/plain comparison
 MAIN_FRAMES = 60
+TRACK_FRAMES = 150  # the tracking path's frames (trajectory_bench)
+TRACK_WARM = 5  # tracked frames before the Hamming kernel/plain comparison
+ATE_BOUND_M = 0.05  # tests/test_trajectory_north_star.py
+KERNELS = ("tsdf_fuse", "hamming")
 REPEATS = 20
 # kernel vs plain: the same float32 operations in the same order (no FMA
 # contraction, IEEE division); only the device's log/exp/log1p and the
@@ -238,6 +254,89 @@ def phase_main_path(card):
     return launches
 
 
+def phase_hamming_vs_plain(dev, card):
+    from ra_slam_tpu_torch.core.se3 import SE3
+    from ra_slam_tpu_torch.eval.trajectory_bench import tracking_setup
+    from ra_slam_tpu_torch.features.orb import detect_and_describe
+    from ra_slam_tpu_torch.features.pyramid import rgb_to_gray
+    from ra_slam_tpu_torch.ops import hamming
+
+    # the tracking shape: the next frame's descriptors against the map
+    ds, slam = tracking_setup(640, 480, device=dev)
+    for i in range(TRACK_WARM):
+        fr = ds.frame(i)
+        hint = SE3.from_matrix(torch.as_tensor(fr.cam_T_world)) if i == 0 else None
+        slam.feed_rgbd_frame(fr.rgb, fr.depth, fr.timestamp, frame_id=i, pose_hint=hint)
+    kp = detect_and_describe(rgb_to_gray(torch.as_tensor(ds.frame(TRACK_WARM).rgb).to(dev)), slam.fcfg)
+    n_lm = int(slam.state.track.lms.valid.sum())
+
+    rng = np.random.default_rng(0)
+    words = lambda n: torch.as_tensor(
+        rng.integers(-2**31, 2**31, (n, 8), dtype=np.int64).astype(np.int32), device=dev)
+    cases = {
+        "bench 1000x20000": (words(1000), words(20000)),
+        "tracking": (kp.desc, slam.state.track.lms.desc),
+        "ragged 130x300": (words(130), words(300)),
+        "empty 0x20000": (words(0), words(20000)),
+        "empty 130x0": (words(130), words(0)),
+    }
+    out = {}
+    for name, (a, b) in cases.items():
+        k = hamming.hamming_matrix(a, b)
+        p = hamming.hamming_matrix_plain(a, b)
+        torch.cuda.synchronize()
+        if k.shape != (a.shape[0], b.shape[0]) or not torch.equal(k, p):
+            raise AssertionError(f"hamming kernel vs plain differ at {name} {tuple(k.shape)}")
+        print(f"hamming kernel == plain at {name}: [{a.shape[0]}, {b.shape[0]}], exact")
+        if k.numel() < 10**6:
+            continue
+        kern = lambda: hamming.hamming_matrix(a, b)
+        plain = lambda: hamming.hamming_matrix_plain(a, b)
+        ms, plain_ms = _median_ms(kern), _median_ms(plain)
+        (_, kernel_dev), (plain_dev, _) = _device_ms(kern, "hamming"), _device_ms(plain)
+        nbytes = k.numel() * 4 + (a.shape[0] + b.shape[0]) * 32
+        print(
+            f"hamming at {name} [{a.shape[0]}, {b.shape[0]}]: per call (median of {REPEATS}, "
+            f"CUDA events): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; device time "
+            f"(torch.profiler, mean): kernel {kernel_dev:.4f} ms, plain {plain_dev:.4f} ms; "
+            f"bytes {nbytes / 1e6:.2f} MB = {nbytes / (kernel_dev / 1e3) / 1e9:.1f} GB/s, "
+            f"share {nbytes / HBM_BYTES_PER_S / (kernel_dev / 1e3):.3f} of 3.35 TB/s; {card}"
+        )
+        out[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+    print(f"tracking shape after {TRACK_WARM} frames: {kp.desc.shape[0]} keypoint slots "
+          f"({int(kp.valid.sum())} valid) x {slam.state.track.lms.desc.shape[0]} landmark slots "
+          f"({n_lm} live)")
+    return out["tracking"]
+
+
+def phase_tracking_path(card):
+    from ra_slam_tpu_torch.eval import trajectory_bench
+    from ra_slam_tpu_torch.ops import hamming
+
+    torch.cuda.reset_peak_memory_stats()
+    hamming.LAUNCHES = 0
+    r = trajectory_bench.main([
+        "--width", "640", "--height", "480", "--no-loop", "--frames", str(TRACK_FRAMES),
+    ])
+    launches = hamming.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(
+        f"tracking path: {r['total_frames']} frames at 640x480, ATE {r['ate_rmse_m']} m, "
+        f"RPE {r['rpe_trans_rmse_m']} m, lost {r['lost_frames']}, keyframes {r['keyframes']}, "
+        f"relocalizations {r['relocalizations']}, {r['steady_state_fps']} tracked frames/s "
+        f"(frames 1..{TRACK_FRAMES - 1}; {r['slam_fps']} with frame 0), "
+        f"{r['host_syncs_per_frame']} host syncs/frame, {launches} Hamming launches, "
+        f"peak device memory {peak_gb:.2f} GiB; {card}"
+    )
+    if r["lost_frames"] != 0 or r["matched_frames"] != TRACK_FRAMES:
+        raise AssertionError(f"tracking lost frames: {r}")
+    if not r["ate_rmse_m"] <= ATE_BOUND_M:
+        raise AssertionError(f"ATE {r['ate_rmse_m']} m > {ATE_BOUND_M} m")
+    if launches < TRACK_FRAMES:
+        raise AssertionError(f"the tracking path launched the Hamming kernel {launches} times")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -250,14 +349,20 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.load_library("tsdf_fuse")
-    build_s = _build.BUILD_SECONDS.get("tsdf_fuse")
-    built = f"nvcc {build_s:.2f} s" if build_s is not None else "library of these sources already built"
-    print(f"tsdf_fuse build: {built} (load {time.perf_counter() - t0:.2f} s)")
-    print((_build.library_dir("tsdf_fuse") / "build.log").read_text().strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, together
+        for job in [pool.submit(_build.load_library, name) for name in KERNELS]:
+            job.result()  # re-raises a failed build
+    for name in KERNELS:
+        build_s = _build.BUILD_SECONDS.get(name)
+        built = f"nvcc {build_s:.2f} s" if build_s is not None else "library of these sources already built"
+        print(f"{name} build: {built}")
+        print((_build.library_dir(name) / "build.log").read_text().strip())
+    print(f"builds done in {time.perf_counter() - t0:.2f} s (in parallel)")
 
     numbers = phase_kernel_vs_plain(dev, card)
     launches = phase_main_path(card)
+    ham_numbers = phase_hamming_vs_plain(dev, card)
+    ham_launches = phase_tracking_path(card)
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -267,6 +372,13 @@ def main():
         "replaces": "ra_slam_tpu/ops/tsdf_pallas.py:156",
         "launches": launches,
         **numbers,
+    }, {
+        "name": "hamming",
+        "route": "cuda",
+        "source": "ra_slam_tpu_torch/csrc/hamming.cu",
+        "replaces": "ra_slam_tpu/ops/hamming.py:52",
+        "launches": ham_launches,
+        **ham_numbers,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,10 +5,12 @@ counterpart of the same subpackage and module name there, and each is
 held against it by a parity test (`tests/test_torch_*.py`).
 
 The port is plain PyTorch: functions on tensors, an explicit `device`
-argument at every entry point, no global device state. The one kernel
-on the fusion path, `ops/tsdf_fuse.py`, is a CUDA C++ kernel for Hopper
-(`csrc/tsdf_fuse.cu`) built from the sources at first use; on CPU
-tensors it runs its plain PyTorch version.
+argument at every entry point, no global device state. Each of the JAX
+package's two Pallas kernels is a CUDA C++ kernel for Hopper, built from
+the sources at first use: the fuse kernel of the fusion path
+(`ops/tsdf_fuse.py`, `csrc/tsdf_fuse.cu`) and the Hamming-matrix kernel
+of the tracking path (`ops/hamming.py`, `csrc/hamming.cu`). On CPU
+tensors each runs its plain PyTorch version.
 
 Importing any module of this package needs only torch and numpy: no
 JAX, flax, yaml or OpenCV (those are imported, if at all, inside the
@@ -16,13 +18,18 @@ function that needs them).
 
 Subpackages
 -----------
-core      SE3, pinhole camera, configuration dataclasses
-io        RGB-D frame/dataset types, synthetic box-room dataset
+core      SE3/SO(3), pinhole camera, configuration dataclasses
+features  pyramid, FAST, ORB descriptors, descriptor matching
+io        RGB-D frame/dataset types, synthetic box-room dataset,
+          the trajectory file format
 map       block keys, spatial hash, the voxel map and its fusion step
 ops       hand-written device kernels and their plain versions
+slam      landmarks, motion-only GN, tracking, keyframes, pose-graph
+          edges, loop detection, relocalization, SlamSystem
 models    segmentation engine (fake mode)
 pipeline  RaSlamSystem facade, offline_eval CLI
-utils     conversion of map state to and from the JAX package
+eval      ATE/RPE, the tracking trajectory bench
+utils     pose buffer; map and SLAM state to and from the JAX package
 """
 
 __version__ = "0.1.0"

@@ -51,6 +51,16 @@ class PinholeCamera:
         y = (uv[..., 1] - self.cy) / self.fy * depth
         return torch.stack([x, y, depth], dim=-1)
 
+    def in_bounds(self, uv: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
+        """Boolean mask: uv within the image rectangle."""
+        u, v = uv[..., 0], uv[..., 1]
+        return (
+            (u >= margin)
+            & (u <= self.width - 1 - margin)
+            & (v >= margin)
+            & (v <= self.height - 1 - margin)
+        )
+
     def resized(self, new_width: int, new_height: int) -> "PinholeCamera":
         # float32 arithmetic, as the JAX camera's f32 fields scale
         sx = np.float32(new_width / self.width)
@@ -60,3 +70,55 @@ class PinholeCamera:
             _f32(np.float32(self.cx) * sx), _f32(np.float32(self.cy) * sy),
             new_width, new_height,
         )
+
+
+def to_i32(x: torch.Tensor) -> torch.Tensor:
+    """float -> int32 as XLA converts: NaN to 0, out-of-range values
+    saturate (torch's cast gives INT_MIN for both)."""
+    x = torch.nan_to_num(x, nan=0.0)
+    return x.clamp(-(2.0**31), 2147483520.0).to(torch.int32)
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor, fill: float = 0.0):
+    """Bilinearly sample img [H, W] or [H, W, C] at continuous uv [..., 2].
+
+    Returns (values, valid_mask). Out-of-bounds samples return `fill`.
+    """
+    H, W = img.shape[0], img.shape[1]
+    u, v = uv[..., 0], uv[..., 1]
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    du = u - u0
+    dv = v - v0
+    u0i = to_i32(u0)
+    v0i = to_i32(v0)
+    valid = (u0i >= 0) & (u0i < W - 1) & (v0i >= 0) & (v0i < H - 1)
+    u0c = torch.clamp(u0i, 0, W - 2).long()
+    v0c = torch.clamp(v0i, 0, H - 2).long()
+    p00 = img[v0c, u0c]
+    p01 = img[v0c, u0c + 1]
+    p10 = img[v0c + 1, u0c]
+    p11 = img[v0c + 1, u0c + 1]
+    if img.ndim == 3:
+        du, dv, vmask = du[..., None], dv[..., None], valid[..., None]
+    else:
+        vmask = valid
+    out = (
+        p00 * (1 - du) * (1 - dv)
+        + p01 * du * (1 - dv)
+        + p10 * (1 - du) * dv
+        + p11 * du * dv
+    )
+    return torch.where(vmask, out, fill), valid
+
+
+def nearest_sample(img: torch.Tensor, uv: torch.Tensor, fill: float = 0.0):
+    """Nearest-neighbour sample (round half to even, as `jnp.round`).
+    Returns (values, valid_mask)."""
+    H, W = img.shape[0], img.shape[1]
+    ui = to_i32(torch.round(uv[..., 0]))
+    vi = to_i32(torch.round(uv[..., 1]))
+    valid = (ui >= 0) & (ui < W) & (vi >= 0) & (vi < H)
+    vals = img[torch.clamp(vi, 0, H - 1).long(), torch.clamp(ui, 0, W - 1).long()]
+    vmask = valid[..., None] if img.ndim == 3 else valid
+    return torch.where(vmask, vals, fill), valid

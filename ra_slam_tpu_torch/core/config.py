@@ -1,8 +1,8 @@
 """Configuration dataclasses (counterpart of `ra_slam_tpu/core/config.py`).
 
 Same fields and defaults as the JAX package's `CameraConfig`,
-`TsdfConfig` and `SystemConfig`. The tracking, feature and BA configs
-arrive with the tracking port. `yaml` is imported only inside
+`TsdfConfig`, `FeatureConfig`, `TrackingConfig` and `SystemConfig`. The
+BA config arrives with the bundle-adjustment port. `yaml` is imported only inside
 `load_yaml_config`, so importing this module needs no PyYAML.
 """
 
@@ -62,9 +62,111 @@ class TsdfConfig:
 
 
 @dataclass(frozen=True)
+class FeatureConfig:
+    """ORB frontend parameters (the reference's Feature.* yaml keys)."""
+
+    max_num_keypoints: int = 1000
+    scale_factor: float = 1.2
+    num_levels: int = 8
+    ini_fast_threshold: int = 20
+    min_fast_threshold: int = 7
+    # spatial-binning cell (px) for keypoint distribution; 0 = global
+    # top-k only (the reference's per-cell search, SURVEY.md §2.8)
+    cell_size: int = 32
+
+
+@dataclass(frozen=True)
+class TrackingConfig:
+    gn_iterations: int = 10
+    huber_delta: float = 5.0  # pixels
+    match_hamming_max: int = 64
+    match_ratio: float = 0.8
+    match_radius: float = 20.0  # projective gating radius (pixels)
+    min_inliers: int = 20  # below this -> tracking lost
+    min_depth: float = 0.1  # meters, for landmark creation
+    max_depth: float = 8.0
+    keyframe_min_interval: int = 3
+    keyframe_translation: float = 0.15  # meters
+    keyframe_rotation: float = 0.25  # radians
+    keyframe_min_inliers: int = 60  # weak tracking forces a keyframe
+    max_map_points: int = 20000
+    max_keyframes: int = 256
+    # pose-acceptance gates: a Gauss-Newton result that technically
+    # clears `min_inliers` can still be a degenerate fit — reject it on
+    # residual size, on an implausible single-frame jump, or when most
+    # matches were outliers (self-similar-texture aliasing). A rejected
+    # frame keeps the predicted pose and flags `lost` (-> relocalizer)
+    # instead of poisoning the map with a garbage keyframe.
+    max_track_rmse: float = 3.0  # px, inlier reprojection rmse
+    # jump gates sized ~3-4x a brisk inter-frame motion: a repeating-
+    # texture cell shift shows up as a whole extra frame of motion in
+    # one step (measured 0.41 m accepted at 0.5, instantly baked into a
+    # keyframe half a meter off); genuine corrections bigger than this
+    # arrive via reloc/loop paths that bypass these gates
+    max_pose_jump_t: float = 0.2  # m per frame vs prediction
+    max_pose_jump_r: float = 0.15  # rad per frame vs prediction
+    min_inlier_ratio: float = 0.5  # inliers / matches
+    # stage-2 re-match gate (px) around the stage-1 refined pose's
+    # reprojections (OpenVSLAM's second, tight local-map search) — wide
+    # enough for measurement noise, narrower than the texture cell pitch
+    # so a one-cell population shift cannot survive re-matching
+    rematch_radius: float = 8.0
+    # consecutive soft gate failures before tracking escalates to lost
+    # (hard inlier collapse escalates immediately)
+    reloc_after: int = 2
+    # relative weight of the per-keypoint pixel-scaled depth residual in
+    # the stage-2 motion-only solve (0 disables)
+    track_depth_weight: float = 0.5
+    # landmark-fusion gates (OpenVSLAM's local-mapping "fuse" step):
+    # at keyframe insertion an unmatched feature re-binds to an existing
+    # landmark instead of spawning a duplicate when one agrees in
+    # descriptor, image position, and depth. The gate dedups TRUE
+    # duplicates only — bridging drift is loop closure's job (a wide
+    # 35 px gate mis-bound repeating-texture cells; those weight-1
+    # observations crept the converged BA window rmse to ~2 px and
+    # pushed every post-keyframe pose ~0.1-0.2 m off the landmark map)
+    fuse_radius: float = 12.0  # px
+    fuse_hamming_max: int = 22
+    fuse_depth_ratio: float = 0.06  # |z_lm - d| <= ratio * d + 0.05 m
+    # no new landmark spawns within this pixel radius of an existing
+    # depth-consistent landmark (duplicate-sheet suppression; see
+    # tracker.insert_keyframe_landmarks)
+    spawn_suppress_radius: float = 6.0
+    # landmark culling cadence (per keyframe)
+    cull_min_obs: int = 2
+    cull_max_age: int = 40
+    # local-map gate for frame-to-map matching: only landmarks seen
+    # within this many keyframes are match candidates (OpenVSLAM tracks
+    # the covisible LOCAL map, not the global one). Without it a drifted
+    # revisit offers two landmark sheets (old map + duplicated new map)
+    # inside the projective gate; the mixed match set splits the inlier
+    # count and tracking dies exactly when loop closure needs it alive.
+    # The old sheet rejoins through keyframe fusion once a loop
+    # correction aligns it. <= 0 disables (global matching).
+    track_max_age: int = 8
+
+    def scaled(self, width_scale: float) -> "TrackingConfig":
+        """Pixel thresholds are ANGULAR quantities calibrated at a
+        320-wide image; scale them for another resolution so gates cover
+        the same field-of-view cone (a VGA run with QVGA gates silently
+        tightens every window 2x — measured: the offline_eval synthetic
+        orbit tracked 8/40 frames at VGA with unscaled defaults)."""
+        return dataclasses.replace(
+            self,
+            match_radius=self.match_radius * width_scale,
+            rematch_radius=self.rematch_radius * width_scale,
+            max_track_rmse=self.max_track_rmse * width_scale,
+            fuse_radius=self.fuse_radius * width_scale,
+            spawn_suppress_radius=self.spawn_suppress_radius * width_scale,
+        )
+
+
+@dataclass(frozen=True)
 class SystemConfig:
     camera: CameraConfig = field(default_factory=CameraConfig)
     tsdf: TsdfConfig = field(default_factory=TsdfConfig)
+    feature: FeatureConfig = field(default_factory=FeatureConfig)
+    tracking: TrackingConfig = field(default_factory=TrackingConfig)
     # extrinsics: 4x4 row-major depth-cam -> tracking-cam transform
     extrinsics: Optional[list] = None
 
@@ -75,7 +177,7 @@ def _get(node: dict, key: str, default):
 
 def load_yaml_config(path: str) -> SystemConfig:
     """Parse a reference-style YAML config into a SystemConfig (the
-    camera, tsdf and extrinsics keys of the JAX package's loader)."""
+    camera, tsdf, feature and extrinsics keys of the JAX package's loader)."""
     import yaml
 
     with open(path) as f:
@@ -110,5 +212,16 @@ def load_yaml_config(path: str) -> SystemConfig:
         if flat is not None:
             tsdf_kwargs[k] = int(flat)
 
+    feat_node = node.get("Feature", node.get("feature", {})) or {}
+    feat = FeatureConfig(
+        max_num_keypoints=int(_get(feat_node, "max_num_keypoints", 1000)),
+        scale_factor=float(_get(feat_node, "scale_factor", 1.2)),
+        num_levels=int(_get(feat_node, "num_levels", 8)),
+        ini_fast_threshold=int(_get(feat_node, "ini_fast_threshold", 20)),
+        min_fast_threshold=int(_get(feat_node, "min_fast_threshold", 7)),
+    )
+
     extrinsics = node.get("Extrinsics", node.get("extrinsics"))
-    return SystemConfig(camera=cam, tsdf=TsdfConfig(**tsdf_kwargs), extrinsics=extrinsics)
+    return SystemConfig(
+        camera=cam, tsdf=TsdfConfig(**tsdf_kwargs), feature=feat, extrinsics=extrinsics
+    )

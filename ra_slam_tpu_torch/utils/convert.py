@@ -1,21 +1,33 @@
-"""Voxel-map state to and from numpy, in the JAX package's layout.
+"""Voxel-map and SLAM state to and from numpy, in the JAX package's
+layout.
 
 `voxel_map_from_numpy` takes any object with the attribute layout of the
 JAX package's `VoxelMap` (`table.key`, `table.value`, `block_key`, ...,
 `free_top`), for example a JAX map whose leaves went through
 `np.asarray`; `voxel_map_to_numpy` returns the same layout with numpy
-leaves. A map fused by one package can so be carried on by the other.
+leaves. `slam_state_from_numpy` / `slam_state_to_numpy` do the same for
+the JAX package's `SlamState` (tracker, landmarks, keyframes, pose-graph
+edges, per-frame statistics); its uint32 descriptor words become the
+port's int32 bit patterns and back. A map fused, or a sequence tracked,
+by one package can so be carried on by the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from ra_slam_tpu_torch.core.se3 import SE3
 from ra_slam_tpu_torch.map.hash_table import HashTable
 from ra_slam_tpu_torch.map.voxel_map import VoxelMap
+from ra_slam_tpu_torch.slam.keyframes import Keyframes
+from ra_slam_tpu_torch.slam.landmarks import Landmarks
+from ra_slam_tpu_torch.slam.pose_graph import PoseGraphEdges
+from ra_slam_tpu_torch.slam.system import SlamState
+from ra_slam_tpu_torch.slam.tracker import TrackState
 
 _FIELDS = (
     ("block_key", np.int32),
@@ -53,3 +65,45 @@ def voxel_map_to_numpy(m: VoxelMap) -> SimpleNamespace:
         table=SimpleNamespace(key=m.table.key.cpu().numpy(), value=m.table.value.cpu().numpy()),
         **{name: getattr(m, name).cpu().numpy() for name, _ in _FIELDS},
     )
+
+
+# nested state types of SlamState, by the annotation of the field
+_NESTED = {c.__name__: c for c in (TrackState, SE3, Landmarks, Keyframes, PoseGraphEdges)}
+
+
+def _state_from(cls, arrays, device):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(arrays, f.name)
+        if f.type in _NESTED:
+            kw[f.name] = _state_from(_NESTED[f.type], v, device)
+        else:
+            a = np.asarray(v)
+            if a.dtype == np.uint32:
+                a = a.view(np.int32)
+            kw[f.name] = _t(a, a.dtype, device)
+    return cls(**kw)
+
+
+def _state_to(obj) -> SimpleNamespace:
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if f.type in _NESTED:
+            out[f.name] = _state_to(v)
+        else:
+            a = v.cpu().numpy()
+            out[f.name] = a.view(np.uint32) if f.name == "desc" else a
+    return SimpleNamespace(**out)
+
+
+def slam_state_from_numpy(arrays, device) -> SlamState:
+    """A port `SlamState` on `device` holding a copy of `arrays` (the JAX
+    `SlamState` layout, numpy leaves; uint32 words viewed as int32)."""
+    return _state_from(SlamState, arrays, device)
+
+
+def slam_state_to_numpy(state: SlamState) -> SimpleNamespace:
+    """The state as numpy arrays in the JAX `SlamState` layout, with the
+    descriptor words as uint32."""
+    return _state_to(state)

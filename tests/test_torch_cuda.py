@@ -1,6 +1,6 @@
-"""Tests of the PyTorch port that need the GPU: the CUDA fuse kernel
-against its plain PyTorch version, and the fusion path on the card
-against the same path on the CPU. They skip where torch sees no CUDA
+"""Tests of the PyTorch port that need the GPU: the CUDA fuse and
+Hamming kernels against their plain PyTorch versions, and the fusion
+path on the card against the same path on the CPU. They skip where torch sees no CUDA
 device. This file imports no JAX, so that it runs on a machine without
 it; tests/conftest.py does import JAX, so run it there as
 
@@ -16,7 +16,7 @@ from ra_slam_tpu_torch.core.config import TsdfConfig
 from ra_slam_tpu_torch.core.se3 import SE3
 from ra_slam_tpu_torch.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
 from ra_slam_tpu_torch.map import voxel_map as vm
-from ra_slam_tpu_torch.ops import tsdf_fuse
+from ra_slam_tpu_torch.ops import hamming, tsdf_fuse
 from ra_slam_tpu_torch.utils.convert import voxel_map_to_numpy
 
 # kernel vs plain: the same operations in the same order (no FMA
@@ -111,3 +111,35 @@ def test_integrate_frame_cuda_matches_cpu(cuda):
     for name, bound in {**TOL, "prob": 1e-4}.items():
         err = np.abs(getattr(c, name) - getattr(g, name)).max()
         assert err <= bound, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ka,kb", [(1000, 20000), (130, 300), (1, 1), (64, 128), (0, 17), (5, 0)])
+def test_hamming_kernel_matches_plain(cuda, ka, kb):
+    """Exact: both count bits, so every distance must agree."""
+    rng = np.random.default_rng(ka * 7 + kb)
+    a = torch.as_tensor(rng.integers(-2**31, 2**31, (ka, 8), dtype=np.int64).astype(np.int32), device=cuda)
+    b = torch.as_tensor(rng.integers(-2**31, 2**31, (kb, 8), dtype=np.int64).astype(np.int32), device=cuda)
+    if ka and kb:
+        b[0] = a[0]  # a zero distance
+    if ka and kb > 1:
+        b[-1] = ~a[-1]  # the largest, 256
+    n0 = hamming.LAUNCHES
+    k = hamming.hamming_matrix(a, b)
+    p = hamming.hamming_matrix_plain(a, b)
+    torch.cuda.synchronize()
+    assert hamming.LAUNCHES == n0 + (1 if ka and kb else 0)
+    assert k.dtype == torch.float32 and k.shape == (ka, kb)
+    assert torch.equal(k, p)
+    if ka and kb:
+        assert k[0, 0] == 0
+    if ka and kb > 1:
+        assert k[-1, -1] == 256
+
+
+def test_hamming_rejects_bad_inputs():
+    a = torch.zeros(4, 8, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        hamming.hamming_matrix(a.to(torch.int64), a)
+    with pytest.raises(ValueError):
+        hamming.hamming_matrix(a[:, :7], a)

@@ -66,6 +66,12 @@ from ra_slam_tpu_torch.pipeline import offline_eval
 r = offline_eval.main(["--synthetic", "--max-frames", "1", "--voxel-size", "0.05",
                        "--truncation", "0.3", "--log2-blocks", "13", "--device", "cpu"])
 assert r["frames"] == 1 and r["num_active"] > 0, r
+from ra_slam_tpu_torch.core.config import TrackingConfig
+from ra_slam_tpu_torch.eval import trajectory_bench
+t = trajectory_bench.run_trajectory_eval(
+    n_frames=3, width=160, height=120, loop_closure=False, device="cpu",
+    tcfg=TrackingConfig(max_map_points=256, max_keyframes=8))
+assert t["lost_frames"] == 0 and t["keyframes"] >= 1, t
 for mod in pkgutil.walk_packages(ra_slam_tpu_torch.__path__, "ra_slam_tpu_torch."):
     importlib.import_module(mod.name)
 leaked = [m for m in sys.modules if m == "ra_slam_tpu" or m.startswith("ra_slam_tpu.")]
@@ -75,9 +81,10 @@ print("GUARD_OK")
 
 
 def test_port_imports_without_jax_yaml_cv2():
-    """Every module of the port imports, and one CPU frame fuses, with
-    jax, flax, yaml and cv2 unavailable and no ra_slam_tpu module
-    loaded: the machine with the GPU has none of them."""
+    """Every module of the port imports, one CPU frame fuses and three
+    are tracked, with jax, flax, yaml and cv2 unavailable and no
+    ra_slam_tpu module loaded: the machine with the GPU has none of
+    them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
         [sys.executable, "-c", _GUARD], cwd=REPO, env=env,
