@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of the repository. Six phases, none of whose failures
+Run from the root of the repository. Ten phases, none of whose failures
 is caught:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
@@ -15,20 +15,40 @@ is caught:
      16384 visible blocks), one more frame through each, from the same
      state; fields within the stated bounds, the same carve releases,
      median times over 20 repeats with CUDA events;
-  3. the main path: `ra_slam_tpu_torch.pipeline.offline_eval` over 60
-     frames on cuda, with the kernel's launch count read around it, and
-     the dumped map checked against the room's known geometry;
+  3. the known-pose fusion path: `ra_slam_tpu_torch.pipeline.offline_eval`
+     over 60 frames on cuda, with the kernel's launch count read around
+     it, and the dumped map checked against the room's known geometry;
   4. the Hamming kernel against its plain PyTorch version, exactly equal,
      at the bench case 1000 x 20000 with random words, at the tracking
      shape (the frame's descriptors against the landmark map after a few
      tracked VGA frames), at a ragged shape and with an empty side;
      median CUDA-event and profiler device times of both, bytes moved and
      the share of 3.35 TB/s;
-  5. the tracking path: `ra_slam_tpu_torch.eval.trajectory_bench` at
-     640x480, --no-loop, 150 frames on cuda, with the Hamming kernel's
-     launch count read around it; 0 lost frames, ATE <= 0.05 m (the
-     repo's north-star bound) and one launch per frame at least;
-  6. a JSON line of the kernels' numbers, then the result line.
+  5. the tracking path without loop closing:
+     `ra_slam_tpu_torch.eval.trajectory_bench` at 640x480, --no-loop,
+     150 frames on cuda, with the Hamming kernel's launch count read
+     around it; 0 lost frames, ATE <= 0.05 m (the repo's north-star
+     bound) and one launch per frame at least;
+  6. the same with loop closing on (the north star's loop-on arm): 0 lost
+     frames, at least one closure, at most 2 relocalizations, ATE <=
+     0.05 m and below phase 5's, one launch per frame at least; the
+     CUDA-event time of each close-branch stage (PGO, landmark
+     correction, global BA);
+  7. BA and PGO on the card against the same on the CPU, from phase 6's
+     final state: one global-BA window solve and one pose-graph
+     optimisation, the largest pose and point differences within the
+     stated bounds, whether two card solves agree bit for bit, and the
+     CUDA-event time of each;
+  8. the full system: `offline_eval --synthetic --use-slam` over all 120
+     VGA frames at the defaults (1000 keypoints on 8 levels, 20000
+     landmarks, 256 keyframes, 1 cm voxels), fusing at the tracked
+     poses: every tracked frame fused, no allocation failure, ATE <=
+     0.05 m, both kernels launched, and the dumped surface (carried from
+     the first camera's frame into the room's) on the room's walls;
+  9. stereo tracking: 6 rectified VGA pairs through
+     `SlamSystem.feed_stereo_frame`, every frame tracked within 0.1 m;
+ 10. a JSON line of the kernels' numbers (launches summed over every
+     path), then the result line.
 
 It exits non-zero, printing no result, when torch sees no CUDA device
 or when the package is not beside it.
@@ -51,6 +71,11 @@ MAIN_FRAMES = 60
 TRACK_FRAMES = 150  # the tracking path's frames (trajectory_bench)
 TRACK_WARM = 5  # tracked frames before the Hamming kernel/plain comparison
 ATE_BOUND_M = 0.05  # tests/test_trajectory_north_star.py
+FULL_FRAMES = 120  # the full system's frames: the whole VGA orbit
+STEREO_FRAMES = 6
+# card vs CPU of one BA window solve and one PGO (float32, TF32 off;
+# the same operations summed in other orders)
+DEV_VS_CPU_TOL = 1e-4
 KERNELS = ("tsdf_fuse", "hamming")
 REPEATS = 20
 # kernel vs plain: the same float32 operations in the same order (no FMA
@@ -321,7 +346,7 @@ def phase_tracking_path(card):
     launches = hamming.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(
-        f"tracking path: {r['total_frames']} frames at 640x480, ATE {r['ate_rmse_m']} m, "
+        f"tracking path (loop closing off): {r['total_frames']} frames at 640x480, ATE {r['ate_rmse_m']} m, "
         f"RPE {r['rpe_trans_rmse_m']} m, lost {r['lost_frames']}, keyframes {r['keyframes']}, "
         f"relocalizations {r['relocalizations']}, {r['steady_state_fps']} tracked frames/s "
         f"(frames 1..{TRACK_FRAMES - 1}; {r['slam_fps']} with frame 0), "
@@ -334,6 +359,219 @@ def phase_tracking_path(card):
         raise AssertionError(f"ATE {r['ate_rmse_m']} m > {ATE_BOUND_M} m")
     if launches < TRACK_FRAMES:
         raise AssertionError(f"the tracking path launched the Hamming kernel {launches} times")
+    return launches, r["ate_rmse_m"]
+
+
+class _CloseTimer:
+    """CUDA events around the close branch's stages: the names the frame
+    step calls in `ra_slam_tpu_torch.slam.system` are wrapped while the
+    timer is entered, and restored after."""
+
+    STAGES = {"optimize_pose_graph": "PGO", "correct_landmarks": "landmark correction",
+              "global_bundle_adjustment": "global BA"}
+
+    def __init__(self, module):
+        self.module, self.events = module, {name: [] for name in self.STAGES}
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events[name].append((start, end))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.module, name) for name in self.STAGES}
+        for name, fn in self.saved.items():
+            setattr(self.module, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+    def summary(self) -> str:
+        torch.cuda.synchronize()
+        parts = []
+        for name, label in self.STAGES.items():
+            ms = [s.elapsed_time(e) for s, e in self.events[name]]
+            parts.append(f"{label} " + (", ".join(f"{t:.2f}" for t in ms) or "none") + " ms")
+        return "; ".join(parts)
+
+
+def phase_loop_tracking(card, ate_loop_off):
+    from ra_slam_tpu_torch.eval import trajectory_bench
+    from ra_slam_tpu_torch.ops import hamming
+    from ra_slam_tpu_torch.slam import system as slam_system
+
+    torch.cuda.reset_peak_memory_stats()
+    hamming.LAUNCHES = 0
+    with _CloseTimer(slam_system) as timer:
+        r, slam = trajectory_bench.main(
+            ["--width", "640", "--height", "480", "--frames", str(TRACK_FRAMES)], return_system=True,
+        )
+    launches = hamming.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(
+        f"tracking path (loop closing on): {r['total_frames']} frames at 640x480, ATE {r['ate_rmse_m']} m "
+        f"(loop off: {ate_loop_off} m), RPE {r['rpe_trans_rmse_m']} m, lost {r['lost_frames']}, "
+        f"keyframes {r['keyframes']}, loop closures {r['loop_closures']}, relocalizations "
+        f"{r['relocalizations']}, {r['steady_state_fps']} tracked frames/s (frames 1..{TRACK_FRAMES - 1}; "
+        f"{r['slam_fps']} with frame 0), {r['host_syncs_per_frame']} host syncs/frame, {launches} Hamming "
+        f"launches, peak device memory {peak_gb:.2f} GiB; {card}"
+    )
+    print(f"close branch per closure (CUDA events): {timer.summary()}; {card}")
+    if r["lost_frames"] != 0 or r["matched_frames"] != TRACK_FRAMES:
+        raise AssertionError(f"loop-on tracking lost frames: {r}")
+    if r["loop_closures"] < 1 or r["relocalizations"] > 2:
+        raise AssertionError(f"loop-on tracking: {r['loop_closures']} closures, {r['relocalizations']} relocalizations")
+    if not (r["ate_rmse_m"] <= ATE_BOUND_M and r["ate_rmse_m"] < ate_loop_off):
+        raise AssertionError(f"loop-on ATE {r['ate_rmse_m']} m: bound {ATE_BOUND_M} m, loop off {ate_loop_off} m")
+    if launches < TRACK_FRAMES:
+        raise AssertionError(f"the loop-on path launched the Hamming kernel {launches} times")
+    return launches, slam
+
+
+def phase_ba_pgo_device_vs_cpu(slam, card):
+    from ra_slam_tpu_torch.slam.ba import gather_window, solve_window
+    from ra_slam_tpu_torch.slam.pose_graph import optimize_pose_graph
+    from ra_slam_tpu_torch.utils.convert import slam_state_from_numpy, slam_state_to_numpy
+
+    p, cam = slam.params, slam.cam
+    on_card = slam.state
+    on_cpu = slam_state_from_numpy(slam_state_to_numpy(on_card), "cpu")
+    kfc = int(on_card.track.kf_counter)
+    start = max(kfc - p.gba_window, 0)
+
+    def ba(s):
+        win = gather_window(s.kfs, s.track.lms, kfc, p.gba_window, p.ba_max_points, start=start)
+        poses, points, st = solve_window(win, cam, iterations=p.gba_iterations)
+        return poses, torch.where(win.point_ok[:, None], points, 0.0), st
+
+    def pgo(s):
+        kfs, _ = optimize_pose_graph(s.kfs, s.edges, s.track.kf_counter, max_nodes=s.kfs.capacity,
+                                     iterations=p.pgo_iterations)
+        return kfs
+
+    (Pg, Xg, sg), (Pc, Xc, sc) = ba(on_card), ba(on_cpu)
+    Pg2, Xg2, _ = ba(on_card)
+    kg, kc, kg2 = pgo(on_card), pgo(on_cpu), pgo(on_card)
+    diff = lambda a, b: (a.cpu() - b.cpu()).abs().max().item()
+    err = {
+        "ba_pose_R": diff(Pg.R, Pc.R), "ba_pose_t": diff(Pg.t, Pc.t), "ba_points": diff(Xg, Xc),
+        "pgo_R": diff(kg.R, kc.R), "pgo_t": diff(kg.t, kc.t),
+    }
+    same_ba = torch.equal(Pg.R, Pg2.R) and torch.equal(Pg.t, Pg2.t) and torch.equal(Xg, Xg2)
+    same_pgo = torch.equal(kg.R, kg2.R) and torch.equal(kg.t, kg2.t)
+    ba_ms = _median_ms(lambda: ba(on_card))
+    pgo_ms = _median_ms(lambda: pgo(on_card))
+    print(
+        f"BA window (keyframes {start}..{start + p.gba_window - 1} of {kfc}, {int(sg.num_points)} points, "
+        f"{int(sg.num_obs)} observations, rmse {float(sg.rmse_before):.4f} -> {float(sg.rmse_after):.4f} px on "
+        f"the card, {float(sc.rmse_after):.4f} px on the CPU) and PGO ({p.pgo_iterations} iterations, "
+        f"{int(on_card.n_edges)} edges, H {6 * on_card.kfs.capacity}^2): card vs CPU max |diff| "
+        f"{json.dumps(err)} (bound {DEV_VS_CPU_TOL}); two card solves bit-equal: BA {same_ba}, PGO {same_pgo}; "
+        f"per call (median of {REPEATS}, CUDA events): gather + solve_window {ba_ms:.3f} ms, "
+        f"optimize_pose_graph {pgo_ms:.3f} ms; {card}"
+    )
+    for name, e in err.items():
+        if not e <= DEV_VS_CPU_TOL:
+            raise AssertionError(f"card vs CPU: {name} differs by {e} > {DEV_VS_CPU_TOL}")
+
+
+def phase_full_system(card):
+    from ra_slam_tpu_torch.ops import hamming, tsdf_fuse
+    from ra_slam_tpu_torch.pipeline import offline_eval
+
+    args = ["--synthetic", "--use-slam"]
+    ds = offline_eval.load_dataset(offline_eval.build_parser().parse_args(args))
+    world_T_cam0 = np.linalg.inv(np.asarray(ds.frame(0).cam_T_world, np.float64))
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        tsdf_fuse.LAUNCHES = hamming.LAUNCHES = 0
+        r = offline_eval.main(args + ["--max-frames", str(FULL_FRAMES), "--download", tmp])
+        fuse_launches, ham_launches = tsdf_fuse.LAUNCHES, hamming.LAUNCHES
+        rows = np.fromfile(os.path.join(tmp, "tsdf.bin"), "<f4").reshape(-1, 5)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    ate = r["ate"]["ate_rmse"]
+    # the SLAM world is the first camera's frame: carry the map into the room's
+    xyz = rows[:, :3].astype(np.float64) @ world_T_cam0[:3, :3].T + world_T_cam0[:3, 3]
+    tsdf, prob = rows[:, 3], rows[:, 4]
+    surf = np.abs(tsdf) < 0.2
+    x, y, zz = np.abs(xyz[surf, 0]), np.abs(xyz[surf, 1]), np.abs(xyz[surf, 2])
+    dist = np.abs(np.minimum(np.minimum(3.0 - x, 2.0 - y), 3.0 - zz))
+    near_ht = xyz[surf, 0] > 2.95
+    p_ht = prob[surf][near_ht].mean() if near_ht.any() else float("nan")
+    print(
+        f"full system: {FULL_FRAMES} VGA frames, {r['tracked_frames']} tracked, {r['frames']} fused, ATE "
+        f"{ate} m, RPE {r['rpe']['rpe_trans_rmse']} m, loop closures {r['loop_closures']}, "
+        f"{r['fps']} fused frames/s end to end (host rendering included), "
+        f"{r['frames'] / r['integrate_s']:.2f} frames/s inside feed_rgbd_frame, track_s {r['track_s']} "
+        f"({FULL_FRAMES / r['track_s']:.2f} tracked frames/s), alloc_failures {r['alloc_failures']}, "
+        f"{r['tsdf_rows']} voxels dumped; surface voxels {int(surf.sum())}: distance to the walls median "
+        f"{float(np.median(dist))} m, p99 {float(np.quantile(dist, 0.99))} m, +x wall p {p_ht}; "
+        f"{fuse_launches} fuse and {ham_launches} Hamming launches; peak device memory {peak_gb:.2f} GiB; {card}"
+    )
+    if r["frames"] != r["tracked_frames"] or r["frames"] == 0 or r["alloc_failures"] != 0:
+        raise AssertionError(f"full system: fused {r['frames']} of {r['tracked_frames']} tracked frames: {r}")
+    if fuse_launches < r["frames"] or ham_launches < FULL_FRAMES:
+        raise AssertionError(f"full system: {fuse_launches} fuse, {ham_launches} Hamming launches")
+    if not ate <= ATE_BOUND_M:
+        raise AssertionError(f"full system: ATE {ate} m > {ATE_BOUND_M} m")
+    if not (np.median(dist) <= 0.02 and np.quantile(dist, 0.99) <= 0.08):
+        raise AssertionError("full system: the fused surface is not on the room's walls")
+    if not p_ht > 0.8:
+        raise AssertionError(f"full system: high-touch wall p {p_ht}")
+    return fuse_launches, ham_launches
+
+
+def phase_stereo(dev, card):
+    from ra_slam_tpu_torch.core.camera import PinholeCamera
+    from ra_slam_tpu_torch.core.config import FeatureConfig, TrackingConfig
+    from ra_slam_tpu_torch.core.se3 import SE3, log_se3
+    from ra_slam_tpu_torch.io.synthetic import SyntheticCameraSpec, look_at, render_box_room
+    from ra_slam_tpu_torch.ops import hamming
+    from ra_slam_tpu_torch.slam.system import SlamSystem
+
+    # tests/test_stereo.py's pair at 240x180, intrinsics scaled to VGA
+    s = 640 / 240
+    spec = SyntheticCameraSpec(fx=120.0 * s, fy=120.0 * s, cx=120.0 * s - 0.5, cy=90.0 * s - 0.5,
+                               width=640, height=480)
+    baseline, he = 0.12, np.array([2.0, 1.5, 2.0])
+    cam = PinholeCamera.create(spec.fx, spec.fy, spec.cx, spec.cy, spec.width, spec.height)
+    slam = SlamSystem(
+        cam, fcfg=FeatureConfig(max_num_keypoints=1000, num_levels=3),
+        tcfg=TrackingConfig(min_inliers=12, match_radius=30.0).scaled(s),
+        ba_window=4, ba_max_points=1024, ba_iterations=3,
+        focal_x_baseline=spec.fx * baseline, max_disparity=int(48 * s), device=dev,
+    )
+    hamming.LAUNCHES = 0
+    errs, t0 = [], time.perf_counter()
+    for i in range(STEREO_FRAMES):
+        w_T_l = look_at(np.array((0.3 - 0.03 * i, 0.02 * i, 0.05 * i)), np.array([0.0, 0.0, 1.5]))
+        w_T_r = w_T_l.copy()
+        w_T_r[:3, 3] += w_T_l[:3, 0] * baseline
+        rgb_l = render_box_room(spec, w_T_l, he)[0]
+        rgb_r = render_box_room(spec, w_T_r, he)[0]
+        gt = SE3.from_matrix(torch.as_tensor(np.linalg.inv(w_T_l), dtype=torch.float32, device=dev))
+        info = slam.feed_stereo_frame(rgb_l, rgb_r, float(i), pose_hint=gt if i == 0 else None)
+        if not info.tracked:
+            raise AssertionError(f"stereo tracking lost at frame {i}")
+        errs.append(torch.linalg.vector_norm(log_se3(info.pose @ gt.inverse())[3:]).item())
+    launches = hamming.LAUNCHES
+    print(
+        f"stereo: {STEREO_FRAMES} rectified VGA pairs (fx*b {spec.fx * baseline:.1f} px m, max disparity "
+        f"{int(48 * s)}), translation errors (m) {[round(e, 4) for e in errs]}, keyframes "
+        f"{int(slam.state.track.kf_counter)}, {launches} Hamming launches, "
+        f"{STEREO_FRAMES / (time.perf_counter() - t0):.2f} frames/s with host rendering; {card}"
+    )
+    if not max(errs) < 0.1:
+        raise AssertionError(f"stereo translation errors {errs}")
+    if launches < STEREO_FRAMES:
+        raise AssertionError(f"stereo tracking launched the Hamming kernel {launches} times")
     return launches
 
 
@@ -362,7 +600,14 @@ def main():
     numbers = phase_kernel_vs_plain(dev, card)
     launches = phase_main_path(card)
     ham_numbers = phase_hamming_vs_plain(dev, card)
-    ham_launches = phase_tracking_path(card)
+    ham_launches, ate_loop_off = phase_tracking_path(card)
+    loop_launches, slam = phase_loop_tracking(card, ate_loop_off)
+    phase_ba_pgo_device_vs_cpu(slam, card)
+    del slam
+    full_fuse, full_ham = phase_full_system(card)
+    stereo_launches = phase_stereo(dev, card)
+    launches += full_fuse
+    ham_launches += loop_launches + full_ham + stereo_launches
 
     print(card)
     print(json.dumps({"kernels": [{

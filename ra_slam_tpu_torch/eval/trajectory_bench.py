@@ -1,16 +1,16 @@
 """End-to-end trajectory accuracy of RGB-D tracking (counterpart of
-`ra_slam_tpu/eval/trajectory_bench.py`), without loop closing.
+`ra_slam_tpu/eval/trajectory_bench.py`).
 
 Tracks the seeded synthetic box-room orbit (a full 360-degree loop plus
 a revisit, multiplicative depth noise) with `SlamSystem` on `--device`,
-exports the per-frame trajectory through the `trajectory.txt` format,
-reads it back and reports ATE/RPE, keyframes, relocalizations, lost
-frames, the tracking rate and the host syncs per frame.
+loop closing on (retrieval gap 15 keyframes, as the JAX bench) unless
+`--no-loop`, exports the per-frame trajectory through the
+`trajectory.txt` format, reads it back and reports ATE/RPE, keyframes,
+loop closures, relocalizations, lost frames, the tracking rate and the
+host syncs per frame.
 
-    python -m ra_slam_tpu_torch.eval.trajectory_bench --no-loop \\
-        --width 640 --height 480 --frames 150
-
-Loop closing is not ported yet: without `--no-loop` this raises.
+    python -m ra_slam_tpu_torch.eval.trajectory_bench \\
+        --width 640 --height 480 --frames 150 [--no-loop]
 """
 
 from __future__ import annotations
@@ -33,11 +33,12 @@ def tracking_setup(
     seed: int = 0,
     scene_kw: Optional[dict] = None,
     device="cuda",
+    loop_closure: bool = True,
     **slam_kw,
 ):
     """(dataset, SlamSystem) of the bench: the 120-frame orbit at
-    `width` x `height` and the loop-free tracking configuration, any
-    `slam_kw` overriding it."""
+    `width` x `height` and the bench's tracking configuration, loop
+    closing on or off, any `slam_kw` overriding it."""
     from ra_slam_tpu_torch.core.config import FeatureConfig, TrackingConfig
     from ra_slam_tpu_torch.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
     from ra_slam_tpu_torch.slam.system import SlamSystem
@@ -56,7 +57,7 @@ def tracking_setup(
         tcfg=TrackingConfig(min_inliers=15, match_radius=30.0).scaled(width / 320.0),
         ba_window=6, ba_max_points=2048, ba_iterations=5,
         loop_every_kf=1, loop_min_inliers=20,
-        loop_min_gap=10**6,
+        loop_min_gap=15 if loop_closure else 10**6,
         loop_max_rmse=3.0 * (width / 320.0),
         reloc_max_rmse=3.0 * (width / 320.0),
         device=device,
@@ -75,20 +76,20 @@ def run_trajectory_eval(
     progress: bool = False,
     scene_kw: Optional[dict] = None,
     device="cuda",
+    return_system: bool = False,
     **slam_kw,
-) -> dict:
+):
     """Track the replay sequence; return the metrics dict of the JAX
     bench (ate_rmse_m, rpe_trans_rmse_m, matched_frames, keyframes,
     loop_closures, relocalizations, lost_frames, slam_fps, ...) plus
-    `host_syncs_per_frame`."""
-    if loop_closure:
-        raise NotImplementedError("loop closing is not ported yet (run with --no-loop)")
+    `host_syncs_per_frame`; with `return_system`, (metrics, the
+    SlamSystem after the run)."""
     from ra_slam_tpu_torch.core.se3 import SE3
     from ra_slam_tpu_torch.eval.ate import ate_rmse, rpe_rmse
     from ra_slam_tpu_torch.io.folder import load_trajectory, save_trajectory
     from ra_slam_tpu_torch.slam import system as slam_system
 
-    ds, slam = tracking_setup(width, height, depth_noise, seed, scene_kw, device, **slam_kw)
+    ds, slam = tracking_setup(width, height, depth_noise, seed, scene_kw, device, loop_closure, **slam_kw)
     dev = slam.device
 
     gt, infos = [], []
@@ -126,7 +127,7 @@ def run_trajectory_eval(
 
     m = ate_rmse(est, gt)
     r = rpe_rmse(est, gt, delta=1)
-    return {
+    out = {
         "ate_rmse_m": round(float(m["ate_rmse"]), 4),
         "rpe_trans_rmse_m": round(float(r["rpe_trans_rmse"]), 4),
         "matched_frames": int(m["matched_frames"]),
@@ -143,9 +144,12 @@ def run_trajectory_eval(
         "loop_closure": loop_closure,
         "device": str(dev),
     }
+    return (out, slam) if return_system else out
 
 
-def main(argv=None) -> dict:
+def main(argv=None, return_system: bool = False):
+    """The CLI; returns the metrics dict (and the system, with
+    `return_system`)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--frames", type=int, default=150)
     p.add_argument("--width", type=int, default=320)
@@ -162,12 +166,13 @@ def main(argv=None) -> dict:
         n_frames=args.frames, width=args.width, height=args.height,
         depth_noise=args.depth_noise, loop_closure=not args.no_loop,
         trajectory_out=args.trajectory_out, seed=args.seed, progress=True,
-        device=args.device,
+        device=args.device, return_system=return_system,
     )
-    print(json.dumps(out))
+    metrics = out[0] if return_system else out
+    print(json.dumps(metrics))
     if args.json_out:
         with open(args.json_out, "w") as f:
-            json.dump(out, f, indent=1)
+            json.dump(metrics, f, indent=1)
     return out
 
 

@@ -1,14 +1,17 @@
-"""Offline reconstruction entry point, known-pose path (counterpart of
+"""Offline reconstruction entry point (counterpart of
 `ra_slam_tpu/pipeline/offline_eval.py`).
 
-Replays a dataset with its ground-truth poses, segments each frame (fake
-mode), fuses it into the semantic TSDF on `--device`, and optionally
-dumps the semantic voxels as `tsdf.bin` (packed (x, y, z, tsdf, prob)
-float32 rows, the reference's metric input). Prints one JSON line with
-the JAX CLI's result keys; the mesh keys wait for the meshing port.
+Replays a dataset, segments each frame (fake mode), and fuses it into
+the semantic TSDF on `--device`: at its ground-truth pose, or with
+`--use-slam` at the pose the SLAM system tracks (frames it loses are not
+fused; the SLAM world is the first camera's frame). Optionally dumps the
+semantic voxels as `tsdf.bin` (packed (x, y, z, tsdf, prob) float32
+rows, the reference's metric input) and the tracked trajectory. Prints
+one JSON line with the JAX CLI's result keys, ATE/RPE of the tracked
+trajectory included; the mesh keys wait for the meshing port.
 
     python -m ra_slam_tpu_torch.pipeline.offline_eval --synthetic \\
-        --max-frames 60 --download out/
+        --max-frames 60 --download out/ [--use-slam]
 
 The `.sens` and folder readers are not ported yet (they need cv2 and
 yaml); those flags raise.
@@ -21,6 +24,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 
@@ -31,12 +35,16 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument("--folder", help="logged folder dataset path (not ported yet)")
     src.add_argument("--synthetic", action="store_true",
                      help="synthetic box-room orbit")
+    p.add_argument("--use-slam", action="store_true",
+                   help="track with the SLAM system instead of the ground-truth poses")
     p.add_argument("--download", default=None, help="output dir for tsdf.bin")
     p.add_argument("--max-frames", type=int, default=0, help="0 = all")
     p.add_argument("--voxel-size", type=float, default=0.01)
     p.add_argument("--truncation", type=float, default=0.06)
     p.add_argument("--max-depth", type=float, default=6.0)
     p.add_argument("--log2-blocks", type=int, default=17)
+    p.add_argument("--trajectory-out", default=None,
+                   help="save the (SLAM) trajectory in id + 3x4 format")
     p.add_argument("--device", default="cuda",
                    help="torch device of the map (cuda runs the CUDA fuse kernel)")
     return p
@@ -92,15 +100,26 @@ def main(argv=None) -> dict:
     ds = load_dataset(args)
     n = len(ds) if args.max_frames == 0 else min(args.max_frames, len(ds))
     cfg = system_config(ds.camera, args)
-    sys_ = RaSlamSystem(cfg, args.device)
+    sys_ = RaSlamSystem(cfg, args.device, enable_tracking=args.use_slam)
 
-    t_int = 0.0
+    t_int = t_track = 0.0
+    gt_traj = []  # (frame_id, 3x4) ground-truth rows for ATE
     t0 = time.perf_counter()
     for i in range(n):
         fr = ds.frame(i)
-        if fr.cam_T_world is None:
-            raise ValueError(f"frame {i} has no ground-truth pose")
-        pose = SE3.from_matrix(torch.as_tensor(fr.cam_T_world))
+        if fr.cam_T_world is not None:
+            gt_traj.append((fr.frame_id, np.asarray(fr.cam_T_world)[:3, :4]))
+        if args.use_slam:
+            ts = time.perf_counter()
+            info = sys_.feed_tracking_frame(fr.rgb, fr.depth, fr.timestamp)
+            t_track += time.perf_counter() - ts
+            if not info.tracked:
+                continue
+            pose = info.pose
+        else:
+            if fr.cam_T_world is None:
+                raise ValueError(f"frame {i} has no ground-truth pose")
+            pose = SE3.from_matrix(torch.as_tensor(fr.cam_T_world))
         ts = time.perf_counter()
         sys_.feed_rgbd_frame(fr.rgb, fr.depth, fr.timestamp, pose=pose, ht=fr.ht, lt=fr.lt)
         t_int += time.perf_counter() - ts
@@ -111,13 +130,30 @@ def main(argv=None) -> dict:
         "frames": sys_.num_integrated,
         "fps": round(sys_.num_integrated / max(wall, 1e-9), 2),
         "wall_s": round(wall, 2),
-        "track_s": 0.0,
+        "track_s": round(t_track, 2),
         "integrate_s": round(t_int, 2),
         **sys_.last_stats,
     }
     if args.download:
         os.makedirs(args.download, exist_ok=True)
         result["tsdf_rows"] = sys_.download_all(os.path.join(args.download, "tsdf.bin"))
+
+    if args.use_slam:
+        est_traj = sys_.slam.trajectory()
+        result["tracked_frames"] = len(est_traj)
+        result["loop_closures"] = sys_.slam.num_loop_closures
+        if args.trajectory_out:
+            from ra_slam_tpu_torch.io.folder import save_trajectory
+
+            save_trajectory(args.trajectory_out, est_traj)
+        if len(gt_traj) >= 3 and len(est_traj) >= 3:
+            from ra_slam_tpu_torch.eval.ate import ate_rmse, rpe_rmse
+
+            try:
+                result["ate"] = ate_rmse(est_traj, gt_traj)
+                result["rpe"] = rpe_rmse(est_traj, gt_traj, delta=1)
+            except ValueError as e:
+                result["ate_error"] = str(e)
 
     print(json.dumps(result))
     return result

@@ -1,16 +1,21 @@
 """Application facade (counterpart of `ra_slam_tpu/pipeline/system.py`).
 
-`RaSlamSystem` owns the segmentation engine and the TSDF voxel map on
-one device and exposes the depth-camera half of the robot-facing API:
+`RaSlamSystem` owns the sparse SLAM system, the segmentation engine, the
+TSDF voxel map and the pose buffer on one device and exposes the
+robot-facing API:
 
-    feed_rgbd_frame()  — depth camera -> segment -> TSDF integrate, with
-                         a known pose (GT replay)
-    query_tsdf()       — AABB voxel query for the planner
-    download_all()     — reference-format (x, y, z, tsdf, prob) dump
-    semantic_voxels()  — the same rows as an array
+    feed_tracking_frame()  — tracking camera (RGB-D) -> SLAM -> pose buffer
+    feed_stereo_frame()    — the same from a rectified stereo pair
+    feed_rgbd_frame()      — depth camera -> segment -> TSDF integrate, at
+                             a given pose or, with `pose=None`, at the
+                             tracked pose of its timestamp
+    query_tsdf()           — AABB voxel query for the planner
+    query_camera_pose()    — tracked pose at a timestamp
+    download_all()         — reference-format (x, y, z, tsdf, prob) dump
+    semantic_voxels()      — the same rows as an array
 
-Tracking, raycast rendering and the mesh dump are not ported yet
-(ROADMAP); `enable_tracking=True` raises.
+Raycast rendering, the mesh dump and resizing a frame to the map's feed
+size are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import numpy as np
 import torch
 
 from ra_slam_tpu_torch.core.camera import PinholeCamera
-from ra_slam_tpu_torch.core.config import SystemConfig
+from ra_slam_tpu_torch.core.config import SystemConfig, TrackingConfig
 from ra_slam_tpu_torch.core.se3 import SE3
 from ra_slam_tpu_torch.map.voxel_map import (
     create_map,
@@ -32,6 +37,7 @@ from ra_slam_tpu_torch.map.voxel_map import (
     query_tsdf,
 )
 from ra_slam_tpu_torch.models.segmentation import InferenceEngine
+from ra_slam_tpu_torch.slam.system import SlamSystem
 
 
 def resolve_device(device) -> torch.device:
@@ -53,11 +59,9 @@ class RaSlamSystem:
         cfg: SystemConfig,
         device,
         segmentation_model: Optional[str] = None,
-        enable_tracking: bool = False,
+        enable_tracking: bool = True,
         alloc_stride: int = 2,
     ):
-        if enable_tracking:
-            raise NotImplementedError("tracking is not ported yet; feed known poses")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.alloc_stride = alloc_stride
@@ -66,8 +70,30 @@ class RaSlamSystem:
             cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy,
             cfg.camera.width, cfg.camera.height,
         ).resized(tsdf.width, tsdf.height)
+        # depth-camera -> tracking-camera extrinsics, applied to queried poses
+        self.extrinsics: Optional[SE3] = None
+        if cfg.extrinsics is not None:
+            m = torch.as_tensor(np.array(cfg.extrinsics, np.float32).reshape(4, 4))
+            self.extrinsics = SE3.from_matrix(m.to(self.device))
         self.seg = InferenceEngine(segmentation_model, width=tsdf.width, height=tsdf.height)
         self.map = create_map(tsdf, self.device)
+
+        self.slam: Optional[SlamSystem] = None
+        if enable_tracking:
+            cam = cfg.camera
+            track_cam = PinholeCamera.create(cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height)
+            # untouched default gates are calibrated at 320-wide images:
+            # scale them (and the loop/reloc rmse gates) to this camera as
+            # angular windows; an explicit tracking config passes unscaled
+            tcfg, scale = cfg.tracking, 1.0
+            if tcfg == TrackingConfig():
+                scale = cam.width / 320.0
+                tcfg = tcfg.scaled(scale)
+            self.slam = SlamSystem(
+                track_cam, fcfg=cfg.feature, tcfg=tcfg,
+                loop_max_rmse=3.0 * scale, reloc_max_rmse=3.0 * scale,
+                focal_x_baseline=cam.focal_x_baseline, device=self.device,
+            )
         self.last_stats: dict = {}
         self.num_integrated = 0
         # serializes map access between camera threads; the map is
@@ -77,20 +103,50 @@ class RaSlamSystem:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
 
+    def feed_tracking_frame(self, rgb: np.ndarray, depth: np.ndarray, timestamp: float,
+                            pose_hint: Optional[SE3] = None):
+        """Feed the tracking camera: track, and register the pose in the
+        buffer only when tracking succeeded."""
+        if self.slam is None:
+            raise RuntimeError("tracking disabled")
+        with self._lock:
+            return self.slam.feed_rgbd_frame(rgb, depth, timestamp, pose_hint=pose_hint)
+
+    def feed_stereo_frame(self, left: np.ndarray, right: np.ndarray, timestamp: float,
+                          pose_hint: Optional[SE3] = None):
+        """The rectified stereo tracking-camera path."""
+        if self.slam is None:
+            raise RuntimeError("tracking disabled")
+        with self._lock:
+            return self.slam.feed_stereo_frame(left, right, timestamp, pose_hint=pose_hint)
+
     def feed_rgbd_frame(
         self,
         rgb: np.ndarray,
         depth: np.ndarray,
         timestamp: float,
-        pose: SE3,
+        pose: Optional[SE3] = None,
         ht: Optional[np.ndarray] = None,
         lt: Optional[np.ndarray] = None,
     ) -> dict:
-        """Segment + integrate one depth-camera frame at `pose`
-        (cam_T_world); returns the integrate stats as ints."""
+        """Segment + integrate one depth-camera frame. `pose`
+        (cam_T_world) overrides the pose-buffer query; without it the
+        frame is fused at the tracked pose of its timestamp, and skipped
+        while tracking is lost or before any pose. Returns the integrate
+        stats as ints (or {"skipped": why})."""
         tsdf = self.cfg.tsdf
         if pose is None:
-            raise ValueError("no pose: tracking is not ported, pass cam_T_world")
+            if self.slam is None:
+                raise ValueError("no pose source: tracking is disabled, pass cam_T_world")
+            if self.slam.lost:
+                # fusing with a stale pose corrupts the map
+                return {"skipped": "tracking lost"}
+            pose = self.slam.query_pose(timestamp)
+            if pose is None:
+                return {"skipped": "no pose"}
+            pose = SE3(pose.R.to(self.device, torch.float32), pose.t.to(self.device, torch.float32))
+            if self.extrinsics is not None:
+                pose = self.extrinsics @ pose
         if rgb.shape[:2] != (tsdf.height, tsdf.width) or depth.shape != (tsdf.height, tsdf.width):
             raise ValueError(
                 f"frame is {tuple(depth.shape)}, the map is fed "
@@ -108,6 +164,11 @@ class RaSlamSystem:
             self.num_integrated += 1
             self.last_stats = {k: int(v) for k, v in stats.items()}
             return self.last_stats
+
+    def query_camera_pose(self, timestamp: float) -> Optional[SE3]:
+        if self.slam is None:
+            raise RuntimeError("tracking disabled")
+        return self.slam.query_pose(timestamp)
 
     def query_tsdf(self, lo, hi) -> np.ndarray:
         """(x, y, z, tsdf) rows inside the AABB (planner API)."""

@@ -1,14 +1,14 @@
 """Fixed-capacity keyframe database (counterpart of
 `ra_slam_tpu/slam/keyframes.py`): poses, per-keyframe observations
 (landmark id, pixel, weight, measured depth), descriptors, and the mean
-±1 descriptor embedding that loop retrieval and relocalization score.
-
-`refresh_observations` (the post-correction row repair) waits for the
-bundle-adjustment port.
+±1 descriptor embedding that loop retrieval and relocalization score,
+and `refresh_observations`, the repair of stored rows after a map
+correction.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -105,3 +105,35 @@ def insert_keyframe(
 
 def num_keyframes(kfs: Keyframes) -> torch.Tensor:
     return kfs.valid.sum(dtype=torch.int32)
+
+
+def refresh_observations(kfs: Keyframes, lms, cam, gate_px: float, mode: int):
+    """Repair stored observation rows that disagree with the corrected
+    landmark sheet: every live row is re-projected, and a row off by
+    more than `gate_px` (or behind the camera) is
+
+      mode=1 ("drop"):    de-weighted (obs_w = 0);
+      mode=2 ("refresh"): re-measured as the predicted pixel and depth
+                          (a row behind the camera drops).
+
+    Returns (kfs, n_repaired)."""
+    lm = torch.clamp(kfs.obs_lm, min=0).long()
+    p = torch.einsum("kij,kfj->kfi", kfs.R, lms.pos[lm]) + kfs.t[:, None, :]
+    z = p[..., 2]
+    ok_z = z > 1e-6
+    zs = torch.where(ok_z, z, 1.0)
+    u = p[..., 0] / zs * cam.fx + cam.cx
+    v = p[..., 1] / zs * cam.fy + cam.cy
+    err = torch.hypot(u - kfs.obs_uv[..., 0], v - kfs.obs_uv[..., 1])
+    live = (kfs.obs_w > 0) & (kfs.obs_lm >= 0) & lms.valid[lm] & kfs.valid[:, None]
+    stale = live & (~ok_z | (err > gate_px))
+    n = stale.sum(dtype=torch.int32)
+    if mode == 1:
+        return dataclasses.replace(kfs, obs_w=torch.where(stale, 0.0, kfs.obs_w)), n
+    had_z = kfs.obs_z > 1e-6
+    return dataclasses.replace(
+        kfs,
+        obs_uv=torch.where(stale[..., None], torch.stack([u, v], dim=-1), kfs.obs_uv),
+        obs_z=torch.where(stale & had_z & ok_z, z, kfs.obs_z),
+        obs_w=torch.where(stale & ~ok_z, 0.0, kfs.obs_w),
+    ), n

@@ -1,23 +1,19 @@
-"""Sparse visual SLAM system: tracking + keyframes (counterpart of
-`ra_slam_tpu/slam/system.py`), without loop closing and bundle
-adjustment.
+"""Sparse visual SLAM system: tracking, keyframes, bundle adjustment and
+loop closing (counterpart of `ra_slam_tpu/slam/system.py`).
 
 Per frame: ORB on the device, then `slam_frame_step`: initialise or
 track, relocalize when lost, insert a keyframe with its odometry edge,
-and check the new keyframe for a loop. The JAX package fuses that
-decision tree into one program under `lax.cond`; here each branch is a
-Python `if` on a device boolean, which waits for the device. `SYNCS`
-counts those reads (a few per frame); making the step sync-free is
-later work.
+run windowed BA on it (`ba_every_kf`), and check it for a loop; a
+verified, consistent loop adds its edge, optimises the pose graph,
+moves the landmarks with their anchor keyframes and runs global BA
+sweeps. The JAX package fuses that decision tree into one program under
+`lax.cond`; here each branch is a Python `if` on a device boolean, which
+waits for the device, and so is global BA's chunk count. `SYNCS` counts
+those reads (a few per frame); making the step sync-free is later work.
 
-Not ported yet, and refused when the system is built: windowed and
-global BA (`ba_every_kf != 0`, the close branch's global BA), the
-observation repair (`reassoc_mode != 0`), stereo frames
-(`focal_x_baseline > 0`), and closing loops: any configuration with
-`loop_min_gap < tcfg.max_keyframes`, where retrieval could return a
-candidate. With a larger gap no candidate clears retrieval, so no loop
-can close, but detection and verification still run at every checked
-keyframe, as in the JAX package.
+Stereo frames (`feed_stereo_frame`) get per-keypoint depth from a
+rectified pair and then take the RGB-D path. `refine_map` with a `mesh`
+(the distributed solver) is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,14 +30,29 @@ from ra_slam_tpu_torch.core.config import FeatureConfig, TrackingConfig
 from ra_slam_tpu_torch.core.se3 import SE3, log_se3, where_pose
 from ra_slam_tpu_torch.features.orb import Keypoints, detect_and_describe, keypoint_capacity
 from ra_slam_tpu_torch.features.pyramid import rgb_to_gray
-from ra_slam_tpu_torch.slam.keyframes import Keyframes, create_keyframes, insert_keyframe
+from ra_slam_tpu_torch.features.stereo import sparse_depth_image, stereo_keypoint_depth
+from ra_slam_tpu_torch.slam.ba import (
+    gather_window,
+    global_bundle_adjustment,
+    local_bundle_adjustment,
+    scatter_window,
+    solve_window,
+)
+from ra_slam_tpu_torch.slam.keyframes import (
+    Keyframes,
+    create_keyframes,
+    insert_keyframe,
+    refresh_observations,
+)
 from ra_slam_tpu_torch.slam.landmarks import scatter_rows
-from ra_slam_tpu_torch.slam.loop_closure import detect_loop, relocalize
+from ra_slam_tpu_torch.slam.loop_closure import LoopCandidate, detect_loop, relocalize
 from ra_slam_tpu_torch.slam.pose_graph import (
     PoseGraphEdges,
     add_edge,
+    correct_landmarks,
     create_edges,
     odometry_edge,
+    optimize_pose_graph,
 )
 from ra_slam_tpu_torch.slam.tracker import (
     TrackState,
@@ -52,7 +63,7 @@ from ra_slam_tpu_torch.slam.tracker import (
 )
 from ra_slam_tpu_torch.utils.pose_buffer import PoseBuffer
 
-SYNCS = 0  # host reads of device predicates in slam_frame_step
+SYNCS = 0  # host reads of device values in slam_frame_step
 
 
 def _host_bool(t: torch.Tensor) -> bool:
@@ -60,6 +71,13 @@ def _host_bool(t: torch.Tensor) -> bool:
     global SYNCS
     SYNCS += 1
     return bool(t)
+
+
+def _host_int(t: torch.Tensor) -> int:
+    """Read a device integer on the host (waits for the device)."""
+    global SYNCS
+    SYNCS += 1
+    return int(t)
 
 
 @dataclass(frozen=True)
@@ -173,6 +191,70 @@ def _maybe_add_edge(state: SlamState, ok, i, j, z: SE3, weight) -> SlamState:
     return dataclasses.replace(state, edges=edges, n_edges=state.n_edges + ok.to(torch.int32))
 
 
+def _newest_kf(state: SlamState) -> SE3:
+    return state.kfs.pose(torch.clamp(state.track.kf_counter - 1, min=0).long())
+
+
+def _propagate_kf_correction(state: SlamState, old_kf: SE3, kfs: Keyframes, lms) -> SlamState:
+    """After an optimiser moved the keyframes, re-anchor the tracker's
+    pose on the newest keyframe: current = (current ∘ old⁻¹) ∘ new."""
+    new_kf = kfs.pose(torch.clamp(state.track.kf_counter - 1, min=0).long())
+    rel = state.track.pose @ old_kf.inverse()
+    track = dataclasses.replace(state.track, pose=rel @ new_kf, last_kf_pose=new_kf, lms=lms)
+    return dataclasses.replace(state, track=track, kfs=kfs)
+
+
+def _ba_step(state: SlamState, cam, p: StepParams):
+    """Windowed BA on the newest keyframes (rows repaired first when
+    `reassoc_mode` is set). Returns (state, rmse, points dropped, how
+    far the newest keyframe moved)."""
+    old_kf = _newest_kf(state)
+    kfs = state.kfs
+    if p.reassoc_mode:
+        kfs, _ = refresh_observations(kfs, state.track.lms, cam, p.reassoc_gate, p.reassoc_mode)
+    kfs, lms, stats = local_bundle_adjustment(
+        kfs, state.track.lms, state.track.kf_counter, cam,
+        window=p.ba_window, max_points=p.ba_max_points, iterations=p.ba_iterations,
+        n_fixed=p.ba_fixed, pose_prior=p.ba_pose_prior,
+    )
+    state = _propagate_kf_correction(state, old_kf, kfs, lms)
+    shift = torch.linalg.vector_norm(_newest_kf(state).t - old_kf.t)
+    return state, stats.rmse_after, stats.points_dropped, shift
+
+
+def _gba_step(state: SlamState, cam, p: StepParams):
+    """Map-wide BA sweeps; the chunk count follows the keyframe count,
+    read on the host here."""
+    old_kf = _newest_kf(state)
+    kfs, lms, stats = global_bundle_adjustment(
+        state.kfs, state.track.lms, _host_int(state.track.kf_counter), cam,
+        window=p.gba_window, max_points=p.ba_max_points,
+        iterations=p.gba_iterations, sweeps=p.gba_sweeps,
+    )
+    return _propagate_kf_correction(state, old_kf, kfs, lms), stats.rmse_after
+
+
+def _loop_close_step(state: SlamState, loop: LoopCandidate, query_slot, p: StepParams):
+    """Add the verified loop edge, optimise the pose graph, move the
+    landmarks and the tracker's pose with it. Returns (state, how far
+    the query keyframe moved, PGO stats)."""
+    state = _maybe_add_edge(
+        state, torch.ones((), dtype=torch.bool, device=loop.cand.device), query_slot,
+        torch.clamp(loop.cand, min=0), loop.rel_pose, 2.0,
+    )
+    old_R, old_t = state.kfs.R, state.kfs.t
+    old_kf = _newest_kf(state)
+    kfs, pgo_stats = optimize_pose_graph(
+        state.kfs, state.edges, state.track.kf_counter,
+        max_nodes=state.kfs.capacity, iterations=p.pgo_iterations,
+    )
+    q = query_slot.long()
+    pgo_shift = torch.linalg.vector_norm(kfs.t[q] - old_t[q])
+    lms = correct_landmarks(state.track.lms, old_R, old_t, kfs)
+    state = _propagate_kf_correction(state, old_kf, kfs, lms)
+    return dataclasses.replace(state, n_loops=state.n_loops + 1), pgo_shift, pgo_stats
+
+
 def _reloc_step(state: SlamState, kp: Keypoints, cam, tcfg, p: StepParams):
     """Relocalize a lost frame against the keyframe database; on
     acceptance tracking resumes from the recovered pose at zero
@@ -214,8 +296,9 @@ def _record_stats(state: SlamState) -> SlamState:
 
 def _loop_check(s: SlamState, new_slot, cam, tcfg, p: StepParams):
     """Detect and verify a loop for keyframe `new_slot` and update the
-    consistency state. No candidate clears retrieval in a configuration
-    the system accepts (see the module docstring), so nothing closes."""
+    consistency state: a loop closes after `loop_consistency`
+    consecutive detections of nearly the same candidate whose implied
+    correction is small. Returns (state, loop, close_now, diagnostics)."""
     loop = detect_loop(
         s.kfs, s.track.lms, new_slot, s.track.kf_counter, cam=cam, tcfg=tcfg,
         min_gap=p.loop_min_gap, min_score=p.loop_min_score,
@@ -234,7 +317,21 @@ def _loop_check(s: SlamState, new_slot, cam, tcfg, p: StepParams):
         loop_prev_cand=torch.where(acc, loop.cand, -(10**6)).to(torch.int32),
         loop_streak=torch.where(close_now, 0, streak).to(torch.int32),
     )
-    return s, (loop.cand, loop.num_inliers, loop.rmse, dt, dr)
+    return s, loop, close_now, (loop.cand, loop.num_inliers, loop.rmse, dt, dr)
+
+
+def _close(s: SlamState, loop: LoopCandidate, new_slot, cam, p: StepParams):
+    """The close branch: PGO and landmark correction, then global BA
+    and the row repair as configured. Returns (state, GBA rmse, PGO
+    shift of the query keyframe)."""
+    s, pgo_shift, _ = _loop_close_step(s, loop, new_slot, p)
+    gba_rmse = None
+    if p.gba_after_loop:
+        s, gba_rmse = _gba_step(s, cam, p)
+    if p.reassoc_mode:
+        kfs, _ = refresh_observations(s.kfs, s.track.lms, cam, p.reassoc_gate, p.reassoc_mode)
+        s = dataclasses.replace(s, kfs=kfs)
+    return s, gba_rmse, pgo_shift
 
 
 def slam_frame_step(
@@ -249,7 +346,8 @@ def slam_frame_step(
     p: StepParams,
 ) -> Tuple[SlamState, FrameInfo]:
     """One frame: initialise or track, relocalize when lost, insert a
-    keyframe (with its odometry edge and loop check) when needed."""
+    keyframe when needed, with its odometry edge, windowed BA and loop
+    check, and close a loop when one is verified."""
     dev = depth.device
     nan = torch.full((), float("nan"), device=dev)
     f = torch.zeros((), dtype=torch.bool, device=dev)
@@ -291,9 +389,18 @@ def slam_frame_step(
         z = odometry_edge(kfs.pose(prev.long()), kfs.pose(new_slot.long()))
         state = _maybe_add_edge(state, kfc >= 2, prev, new_slot, z, 1.0)
         info.update(inserted_keyframe=~f)
+        if p.ba_every_kf == 1 or (p.ba_every_kf > 1 and _host_bool(kfc % p.ba_every_kf == 0)):
+            state, ba_rmse, ba_dropped, ba_shift = _ba_step(state, cam, p)
+            info.update(ba_rmse=ba_rmse, ba_dropped=ba_dropped, ba_shift=ba_shift)
         if _host_bool((kfc % p.loop_every_kf == 0) & (kfc >= 2)):
-            state, (cand, inl, rmse, dt, dr) = _loop_check(state, new_slot, cam, tcfg, p)
+            state, loop, close_now, (cand, inl, rmse, dt, dr) = _loop_check(state, new_slot, cam, tcfg, p)
             info.update(loop_cand=cand, loop_inliers=inl, loop_rmse=rmse, loop_delta_t=dt, loop_delta_r=dr)
+            if _host_bool(close_now):
+                state, gba_rmse, pgo_shift = _close(state, loop, new_slot, cam, p)
+                info.update(loop_closed=~f, pgo_shift=pgo_shift)
+                if gba_rmse is not None:
+                    # a closure reports its global BA's rmse (JAX's merge)
+                    info.update(ba_rmse=torch.where(torch.isnan(gba_rmse), info["ba_rmse"], gba_rmse))
 
     state = _record_stats(state)
     pose = state.track.pose
@@ -359,23 +466,12 @@ class SlamSystem:
     ):
         from ra_slam_tpu_torch.pipeline.system import resolve_device
 
-        deferred = [
-            (ba_every_kf != 0, f"ba_every_kf={ba_every_kf}: bundle adjustment"),
-            (reassoc_mode != 0, f"reassoc_mode={reassoc_mode}: observation repair"),
-            (focal_x_baseline > 0, "focal_x_baseline > 0: the stereo path"),
-            (
-                loop_min_gap < tcfg.max_keyframes,
-                f"loop_min_gap={loop_min_gap} < max_keyframes={tcfg.max_keyframes}: "
-                "loop closing",
-            ),
-        ]
-        for refused, what in deferred:
-            if refused:
-                raise NotImplementedError(f"{what} is not ported yet")
         self.device = resolve_device(device)
         self.cam = cam
         self.fcfg = fcfg
         self.tcfg = tcfg
+        self.focal_x_baseline = focal_x_baseline
+        self.max_disparity = max_disparity
         self.params = StepParams(
             ba_window=ba_window, ba_max_points=ba_max_points,
             ba_iterations=ba_iterations, ba_every_kf=ba_every_kf,
@@ -409,17 +505,46 @@ class SlamSystem:
         pose_hint: Optional[SE3] = None,
     ) -> FrameInfo:
         """Track one RGB-D frame; returns its (pose, tracked, ...) feedback."""
+        rgb_t = torch.as_tensor(np.asarray(rgb)).to(self.device)
+        depth_t = torch.as_tensor(np.asarray(depth, np.float32)).to(self.device)
+        kp = detect_and_describe(rgb_to_gray(rgb_t), self.fcfg)
+        return self._feed(kp, depth_t, timestamp, frame_id, pose_hint)
+
+    def feed_stereo_frame(
+        self,
+        left: np.ndarray,  # [H, W, 3] or [H, W] rectified left
+        right: np.ndarray,  # rectified right
+        timestamp: float,
+        frame_id: Optional[int] = None,
+        pose_hint: Optional[SE3] = None,
+    ) -> FrameInfo:
+        """Track one rectified stereo pair: per-keypoint epipolar ZNCC
+        depth feeds the RGB-D landmark path (needs `focal_x_baseline`)."""
+        if self.focal_x_baseline <= 0:
+            raise ValueError("stereo tracking needs focal_x_baseline > 0")
+        img = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
+        l, r = img(left), img(right)
+        gray_l = rgb_to_gray(l) if l.ndim == 3 else l
+        gray_r = rgb_to_gray(r) if r.ndim == 3 else r
+        kp = detect_and_describe(gray_l, self.fcfg)
+        d, ok = stereo_keypoint_depth(
+            gray_l, gray_r, kp.uv, kp.valid, focal_x_baseline=self.focal_x_baseline,
+            max_disparity=self.max_disparity, min_depth=self.tcfg.min_depth,
+            max_depth=self.tcfg.max_depth,
+        )
+        depth = sparse_depth_image(kp.uv, d, ok, self.cam.height, self.cam.width)
+        return self._feed(kp, depth, timestamp, frame_id, pose_hint)
+
+    def _feed(self, kp: Keypoints, depth: torch.Tensor, timestamp: float,
+              frame_id: Optional[int], pose_hint: Optional[SE3]) -> FrameInfo:
         dev = self.device
         fid = len(self._frames) if frame_id is None else frame_id
         self._frames.append((fid, timestamp))
-        rgb_t = torch.as_tensor(np.asarray(rgb)).to(dev)
-        depth_t = torch.as_tensor(np.asarray(depth, np.float32)).to(dev)
-        kp = detect_and_describe(rgb_to_gray(rgb_t), self.fcfg)
         pose0 = SE3.identity(dev) if pose_hint is None else SE3(
             pose_hint.R.to(dev, torch.float32), pose_hint.t.to(dev, torch.float32)
         )
         self.state, info = slam_frame_step(
-            self.state, kp, depth_t,
+            self.state, kp, depth,
             torch.full((), fid, dtype=torch.int32, device=dev),
             torch.full((), timestamp, dtype=torch.float32, device=dev),
             pose0, self.cam, self.tcfg, self.params,
@@ -427,11 +552,31 @@ class SlamSystem:
         self.pose_buffer.register_lazy(timestamp, info.pose, info._dev["tracked"])
         return info
 
-    def feed_stereo_frame(self, *args, **kwargs) -> FrameInfo:
-        raise NotImplementedError("the stereo path is not ported yet")
-
-    def refine_map(self, *args, **kwargs) -> dict:
-        raise NotImplementedError("refine_map (global bundle adjustment) is not ported yet")
+    def refine_map(self, mesh=None, window: int = 16, iterations: int = 6, sweeps: int = 2) -> dict:
+        """Offline map-wide structure and pose refinement over the whole
+        keyframe database: overlapping sliding-window BA sweeps like the
+        post-loop global BA. Returns {"rmse_before", "rmse_after",
+        "windows"}. A `mesh` (the distributed Schur solver) is not
+        ported yet."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "refine_map(mesh=...): the distributed solver (parallel/, ROADMAP item 19) is not ported yet"
+            )
+        kfc = int(self.state.track.kf_counter)
+        kfs, lms = self.state.kfs, self.state.track.lms
+        stride = max(window // 2, 1)
+        starts = list(range(0, max(kfc - window, 0) + 1, stride)) or [0]
+        r0s, r1s = [], []
+        for _ in range(sweeps):
+            for start in starts:
+                win = gather_window(kfs, lms, kfc, window, self.params.ba_max_points, start=start)
+                poses, points, st = solve_window(win, self.cam, iterations=iterations)
+                kfs, lms = scatter_window(kfs, lms, win, poses, points)
+                r0s.append(float(st.rmse_before))
+                r1s.append(float(st.rmse_after))
+        old_kf = _newest_kf(self.state)
+        self.state = _propagate_kf_correction(dataclasses.replace(self.state, kfs=kfs), old_kf, kfs, lms)
+        return {"rmse_before": float(np.mean(r0s)), "rmse_after": float(np.mean(r1s)), "windows": len(r0s)}
 
     @property
     def lost(self) -> bool:

@@ -7,9 +7,12 @@ JAX package's `VoxelMap` (`table.key`, `table.value`, `block_key`, ...,
 `np.asarray`; `voxel_map_to_numpy` returns the same layout with numpy
 leaves. `slam_state_from_numpy` / `slam_state_to_numpy` do the same for
 the JAX package's `SlamState` (tracker, landmarks, keyframes, pose-graph
-edges, per-frame statistics); its uint32 descriptor words become the
-port's int32 bit patterns and back. A map fused, or a sequence tracked,
-by one package can so be carried on by the other.
+edges, loop-consistency state, per-frame statistics), and
+`tree_from_numpy` / `tree_to_numpy` for any one of its parts or a BA
+window (`Keyframes`, `Landmarks`, `PoseGraphEdges`, `BAWindow`, ...); the
+uint32 descriptor words become the port's int32 bit patterns and back. A
+map fused, or a sequence tracked, by one package can so be carried on by
+the other.
 """
 
 from __future__ import annotations
@@ -67,16 +70,19 @@ def voxel_map_to_numpy(m: VoxelMap) -> SimpleNamespace:
     )
 
 
-# nested state types of SlamState, by the annotation of the field
+# nested state types, by the annotation of the field
 _NESTED = {c.__name__: c for c in (TrackState, SE3, Landmarks, Keyframes, PoseGraphEdges)}
 
 
-def _state_from(cls, arrays, device):
+def tree_from_numpy(cls, arrays, device):
+    """A port `cls` (one of the SLAM state dataclasses) on `device`
+    holding a copy of `arrays`, an object with the JAX counterpart's
+    attribute layout and numpy leaves (uint32 words viewed as int32)."""
     kw = {}
     for f in dataclasses.fields(cls):
         v = getattr(arrays, f.name)
         if f.type in _NESTED:
-            kw[f.name] = _state_from(_NESTED[f.type], v, device)
+            kw[f.name] = tree_from_numpy(_NESTED[f.type], v, device)
         else:
             a = np.asarray(v)
             if a.dtype == np.uint32:
@@ -85,12 +91,14 @@ def _state_from(cls, arrays, device):
     return cls(**kw)
 
 
-def _state_to(obj) -> SimpleNamespace:
+def tree_to_numpy(obj) -> SimpleNamespace:
+    """A SLAM state dataclass as numpy arrays in the JAX layout, with
+    the descriptor words as uint32."""
     out = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         if f.type in _NESTED:
-            out[f.name] = _state_to(v)
+            out[f.name] = tree_to_numpy(v)
         else:
             a = v.cpu().numpy()
             out[f.name] = a.view(np.uint32) if f.name == "desc" else a
@@ -100,10 +108,10 @@ def _state_to(obj) -> SimpleNamespace:
 def slam_state_from_numpy(arrays, device) -> SlamState:
     """A port `SlamState` on `device` holding a copy of `arrays` (the JAX
     `SlamState` layout, numpy leaves; uint32 words viewed as int32)."""
-    return _state_from(SlamState, arrays, device)
+    return tree_from_numpy(SlamState, arrays, device)
 
 
 def slam_state_to_numpy(state: SlamState) -> SimpleNamespace:
     """The state as numpy arrays in the JAX `SlamState` layout, with the
     descriptor words as uint32."""
-    return _state_to(state)
+    return tree_to_numpy(state)

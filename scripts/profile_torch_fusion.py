@@ -94,7 +94,7 @@ def main():
         s.synchronize()
 
     for rep in range(3):
-        s = RaSlamSystem(cfg, "cuda")
+        s = RaSlamSystem(cfg, "cuda", enable_tracking=False)
         run(s, 0, WARM)
         t0 = time.perf_counter()
         run(s, WARM, N_FRAMES)
@@ -104,7 +104,7 @@ def main():
               f"{dt / n * 1e3:.3f} ms/frame; {s.last_stats}; {card}")
         del s
 
-    s = RaSlamSystem(cfg, "cuda")
+    s = RaSlamSystem(cfg, "cuda", enable_tracking=False)
     lo, hi = PROFILED
     run(s, 0, lo)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -76,7 +76,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("profile_torch_tracking: no CUDA device")
     card = _smi()
-    ds, s = tracking_setup(640, 480, device="cuda")
+    ds, s = tracking_setup(640, 480, device="cuda", loop_closure=False)
     frames = [ds.frame(i) for i in range(N_FRAMES)]
     dev = s.device
 

@@ -1,6 +1,7 @@
 """The known-pose CLI of the PyTorch port
 (ra_slam_tpu_torch/pipeline/offline_eval.py) against the JAX package's,
-on the CPU, and the port's import boundary."""
+on the CPU, and the port's import boundary (tests/test_torch_facade.py
+holds the facade's tracked fusion against JAX)."""
 
 import os
 import subprocess
@@ -68,10 +69,25 @@ r = offline_eval.main(["--synthetic", "--max-frames", "1", "--voxel-size", "0.05
 assert r["frames"] == 1 and r["num_active"] > 0, r
 from ra_slam_tpu_torch.core.config import TrackingConfig
 from ra_slam_tpu_torch.eval import trajectory_bench
-t = trajectory_bench.run_trajectory_eval(
-    n_frames=3, width=160, height=120, loop_closure=False, device="cpu",
-    tcfg=TrackingConfig(max_map_points=256, max_keyframes=8))
-assert t["lost_frames"] == 0 and t["keyframes"] >= 1, t
+for loop in (False, True):
+    t = trajectory_bench.run_trajectory_eval(
+        n_frames=3, width=160, height=120, loop_closure=loop, device="cpu",
+        tcfg=TrackingConfig(max_map_points=256, max_keyframes=8))
+    assert t["lost_frames"] == 0 and t["keyframes"] >= 1 and t["loop_closure"] == loop, t
+import numpy as np
+from ra_slam_tpu_torch.core.config import CameraConfig, FeatureConfig, SystemConfig, TsdfConfig
+from ra_slam_tpu_torch.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
+from ra_slam_tpu_torch.pipeline.system import RaSlamSystem
+cam = dict(fx=80.0, fy=80.0, cx=79.5, cy=59.5, width=160, height=120)
+ds = SyntheticBoxDataset(num_frames=120, cam=SyntheticCameraSpec(**cam), radius=1.0)
+cfg = SystemConfig(camera=CameraConfig(**cam), feature=FeatureConfig(max_num_keypoints=200, num_levels=2),
+                   tsdf=TsdfConfig(voxel_size=0.05, truncation=0.3, log2_num_blocks=12, log2_hash_size=14,
+                                   max_visible_blocks=2048, max_new_blocks=4096, width=160, height=120))
+s = RaSlamSystem(cfg, "cpu")
+fr = ds.frame(0)
+assert s.feed_tracking_frame(fr.rgb, fr.depth, fr.timestamp).tracked
+st = s.feed_rgbd_frame(fr.rgb, fr.depth, fr.timestamp, ht=fr.ht, lt=fr.lt)
+assert "skipped" not in st and s.num_integrated == 1 and st["num_active"] > 0, st
 for mod in pkgutil.walk_packages(ra_slam_tpu_torch.__path__, "ra_slam_tpu_torch."):
     importlib.import_module(mod.name)
 leaked = [m for m in sys.modules if m == "ra_slam_tpu" or m.startswith("ra_slam_tpu.")]
@@ -81,16 +97,34 @@ print("GUARD_OK")
 
 
 def test_port_imports_without_jax_yaml_cv2():
-    """Every module of the port imports, one CPU frame fuses and three
-    are tracked, with jax, flax, yaml and cv2 unavailable and no
-    ra_slam_tpu module loaded: the machine with the GPU has none of
-    them."""
+    """Every module of the port imports, one CPU frame fuses at a given
+    pose, three are tracked with loop closing off and three with it on,
+    and the facade tracks one frame and fuses it at the tracked pose,
+    with jax, flax, yaml and cv2 unavailable and no ra_slam_tpu module
+    loaded: the machine with the GPU has none of them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
         [sys.executable, "-c", _GUARD], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert r.returncode == 0 and "GUARD_OK" in r.stdout, r.stdout + r.stderr
+
+
+def test_use_slam_cli_tracks_and_fuses(tmp_path):
+    """`--use-slam`: three VGA frames tracked by the facade at the
+    defaults (1000 keypoints on 8 levels, 20000 landmarks) and fused at
+    the tracked poses; ATE/RPE against the ground truth in the result,
+    the trajectory written in the id + 3x4 format."""
+    traj = tmp_path / "trajectory.txt"
+    r = port_cli.main(ARGS + ["--use-slam", "--device", "cpu", "--download", str(tmp_path),
+                              "--trajectory-out", str(traj)])
+    assert r["frames"] == r["tracked_frames"] == 3 and r["alloc_failures"] == 0 and r["tsdf_rows"] > 0
+    assert r["track_s"] > 0 and r["loop_closures"] == 0
+    assert r["ate"]["matched_frames"] == 3 and r["ate"]["ate_rmse"] < 0.01, r["ate"]
+    assert r["rpe"]["pairs"] == 2
+    rows = np.loadtxt(traj)
+    assert rows.shape == (3, 13) and list(rows[:, 0]) == [0, 1, 2]
+    np.testing.assert_allclose(rows[0, 1:].reshape(3, 4), np.eye(4)[:3], atol=1e-6)  # the SLAM world is camera 0
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):

@@ -6,7 +6,10 @@ first 8 frames of the 320x240 synthetic orbit (300 keypoints on 2
 levels, 2048 landmarks, 32 keyframes). The JAX side runs op by op (see
 tests/torch_parity.py). Its states after frames 3 and 7 also feed the
 module-level tests: tracking, keyframe insertion, relocalization and
-loop verification run in both packages from the same state.
+loop verification run in both packages from the same state. Loop
+closing, BA in the frame step and stereo frames are held against JAX in
+tests/test_torch_slam_loop.py, tests/test_torch_slam_ba.py and
+tests/test_torch_stereo.py.
 """
 
 import dataclasses
@@ -381,22 +384,37 @@ def test_ate_and_trajectory_io_match_jax(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     dict(ba_every_kf=1), dict(reassoc_mode=1), dict(focal_x_baseline=40.0), dict(loop_min_gap=30),
-])
-def test_deferred_configurations_are_refused(kw):
-    cam = PinholeCamera.create(80.0, 80.0, 79.5, 59.5, 160, 120)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SlamSystem(cam, device="cpu", **{"loop_min_gap": 10**6, **kw})
+], ids=["ba", "reassoc", "stereo", "loop_gap_30"])
+def test_formerly_deferred_configurations_run(kw):
+    """The configurations the port refused before loop closing and BA
+    were ported now build and track: 3 frames of the 160x120 orbit
+    (loop checks at every keyframe, a keyframe every other frame)."""
+    spec = SyntheticCameraSpec(fx=80.0, fy=80.0, cx=79.5, cy=59.5, width=160, height=120)
+    ds = SyntheticBoxDataset(num_frames=120, cam=spec, radius=1.0)
+    c = ds.camera
+    cam = PinholeCamera.create(float(c.fx), float(c.fy), float(c.cx), float(c.cy), c.width, c.height)
+    tcfg = TrackingConfig(min_inliers=12, match_radius=15.0, keyframe_min_interval=1, keyframe_translation=0.02,
+                          max_map_points=512, max_keyframes=8)
+    s = SlamSystem(cam, fcfg=FeatureConfig(max_num_keypoints=200, num_levels=2), tcfg=tcfg, device="cpu",
+                   ba_window=3, ba_max_points=256, loop_every_kf=1, **kw)
+    for i in range(3):
+        fr = ds.frame(i)
+        info = s.feed_rgbd_frame(fr.rgb, fr.depth, fr.timestamp, frame_id=i)
+        assert info.tracked, i
+    assert int(s.state.track.kf_counter) >= 2 and int(s.state.n_edges) >= 1
 
 
 def test_deferred_entry_points_raise(monkeypatch):
+    """What is still not ported raises: the distributed solver behind
+    `refine_map(mesh=...)`, and a cuda device without a GPU."""
     cam = PinholeCamera.create(80.0, 80.0, 79.5, 59.5, 160, 120)
-    s = SlamSystem(cam, tcfg=TrackingConfig(max_map_points=64, max_keyframes=4), device="cpu", loop_min_gap=10**6)
-    with pytest.raises(NotImplementedError):
-        s.refine_map()
-    with pytest.raises(NotImplementedError):
-        s.feed_stereo_frame(None, None, 0.0)
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        trajectory_bench.main(["--frames", "2", "--device", "cpu"])
+    s = SlamSystem(cam, tcfg=TrackingConfig(max_map_points=64, max_keyframes=4), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
+        s.refine_map(mesh=object())
+    with pytest.raises(ValueError, match="focal_x_baseline"):
+        s.feed_stereo_frame(np.zeros((120, 160), np.float32), np.zeros((120, 160), np.float32), 0.0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
-        trajectory_bench.main(["--no-loop", "--frames", "2"])
+        trajectory_bench.main(["--frames", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        SlamSystem(cam, device="cuda")
