@@ -14,16 +14,22 @@ is caught:
      offline_eval defaults (1 cm voxels, 2^17 blocks, 2^19 hash slots,
      16384 visible blocks), one more frame through each, from the same
      state; fields within the stated bounds, the same carve releases,
-     median times over 20 repeats with CUDA events;
+     median times over 20 repeats with CUDA events and profiler device
+     times, each call after a 256 MiB write that flushes the L2, and the
+     kernel's share of its bound (bytes over 3.35 TB/s against float32
+     operations over 67 TFLOP/s);
   3. the known-pose fusion path: `ra_slam_tpu_torch.pipeline.offline_eval`
      over 60 frames on cuda, with the kernel's launch count read around
      it, and the dumped map checked against the room's known geometry;
   4. the Hamming kernel against its plain PyTorch version, exactly equal,
      at the bench case 1000 x 20000 with random words, at the tracking
      shape (the frame's descriptors against the landmark map after a few
-     tracked VGA frames), at a ragged shape and with an empty side;
-     median CUDA-event and profiler device times of both, bytes moved and
-     the share of 3.35 TB/s;
+     tracked VGA frames), at ragged shapes, with kb % 4 != 0 and with an
+     empty side; at the two large shapes the library yardstick (one
+     torch.mm of the +-1 forms, checked equal after (256 - x) / 2), the
+     cold-L2 CUDA-event times of kernel, plain version and library call,
+     the profiler device times of kernel and plain version, and the
+     shares of the bound (the output bytes over 3.35 TB/s);
   5. the tracking path without loop closing:
      `ra_slam_tpu_torch.eval.trajectory_bench` at 640x480, --no-loop,
      150 frames on cuda, with the Hamming kernel's launch count read
@@ -48,7 +54,9 @@ is caught:
   9. stereo tracking: 6 rectified VGA pairs through
      `SlamSystem.feed_stereo_frame`, every frame tracked within 0.1 m;
  10. a JSON line of the kernels' numbers (launches summed over every
-     path), then the result line.
+     path; times, bound and library time at the main path's shapes: the
+     fuse kernel at frame 10, the Hamming kernel at the tracking shape),
+     then the result line.
 
 It exits non-zero, printing no result, when torch sees no CUDA device
 or when the package is not beside it.
@@ -82,7 +90,21 @@ REPEATS = 20
 # contraction, IEEE division); only the device's log/exp/log1p and the
 # summation inside the rigid transform may differ by an ulp
 TOL = {"tsdf": 2e-5, "weight": 2e-5, "prob": 2e-5, "minabs": 2e-5, "rgb": 1e-3}
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
+# H100 SXM peaks, NVIDIA's data sheet (dense): device memory, int8 tensor
+# cores, float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+F32_FLOPS_PER_S = 67e12
+# float32 operations of the fuse kernel (csrc/tsdf_fuse.cu), each log, log1p
+# and exp counted as one: every voxel (sdf, the update gate, |tsdf| and the
+# block min) and, on top, every updated voxel (the weighted averages, the
+# log-odds, the clamps)
+FUSE_OPS_PER_VOXEL = 8
+FUSE_OPS_PER_UPDATE = 45
+# scratch written before every timed call, so that each call finds the
+# 50 MB L2 cold, as the main path does after a frame's other work
+L2_FLUSH_BYTES = 256 * 2**20
+_L2_SCRATCH = []
 
 
 def _smi() -> str:
@@ -93,10 +115,24 @@ def _smi() -> str:
     return out.strip().splitlines()[0]
 
 
+def _flush_l2():
+    """Write L2_FLUSH_BYTES of int16 scratch: an int16 fill, which
+    neither kernel nor plain version launches, so `_device_ms` can leave
+    it out by name."""
+    if not _L2_SCRATCH:
+        _L2_SCRATCH.append(torch.empty(L2_FLUSH_BYTES // 2, dtype=torch.int16, device="cuda"))
+    _L2_SCRATCH[0].fill_(7)
+
+
 def _median_ms(fn) -> float:
+    """Median CUDA-event time of one call over REPEATS calls, each after
+    an L2 flush outside its window. The flush also keeps the card busy
+    while the host enqueues the call, so the window holds little host
+    time."""
     fn()  # warm-up
     times = []
     for _ in range(REPEATS):
+        _flush_l2()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -107,22 +143,46 @@ def _median_ms(fn) -> float:
     return float(np.median(times))
 
 
-def _device_ms(fn, only=""):
-    """Mean device time per call, over REPEATS calls (torch.profiler), of
-    everything `fn` runs on the card (kernels and copies) and of the
-    kernels whose name holds `only`: unlike the CUDA-event time it leaves
-    out the gaps where the card waits on the host."""
+def _cuda_events(fn):
+    """The device events (torch.profiler) of everything `fn` runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPEATS):
-            fn()
+        fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    total = sum(e.time_range.elapsed_us() for e in dev)
-    named = sum(e.time_range.elapsed_us() for e in dev if only in e.name)
-    return total / 1e3 / REPEATS, named / 1e3 / REPEATS
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _device_ms(fn, only=""):
+    """Mean device time per call, over REPEATS calls each after an L2
+    flush (torch.profiler), of everything `fn` runs on the card (kernels
+    and copies), and the mean time of one kernel whose name holds `only`
+    (each call launches it once) with the number of its records: unlike
+    the CUDA-event time it leaves out the gaps where the card waits on
+    the host. On the card the profiler has dropped some of a kernel's
+    records from a profile and shown others in a later profile, so the
+    named time is a mean over the records that arrived, not a sum over
+    the calls. The flush's own device events are left out."""
+    flush = {e.name for e in _cuda_events(_flush_l2)}
+
+    def calls():
+        for _ in range(REPEATS):
+            _flush_l2()
+            fn()
+
+    dev = _cuda_events(calls)
+    mine = [e for e in dev if e.name not in flush]
+    total = sum(e.time_range.elapsed_us() for e in mine)
+    named = [e.time_range.elapsed_us() for e in mine if only and only in e.name]
+    return total / 1e3 / REPEATS, (float(np.mean(named)) / 1e3 if named else float("nan")), len(named)
+
+
+def _bound(nbytes, ops, ops_per_s):
+    """(least time in ms, what bounds it): the bytes over the device
+    memory's rate against the operations over their type's peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _event_ms(fn):
@@ -202,28 +262,32 @@ def phase_kernel_vs_plain(dev, card):
     kernel = lambda: tsdf_fuse.tsdf_fuse_(mk, *fuse_args)
     plain = lambda: tsdf_fuse.tsdf_fuse_plain_(mp, *fuse_args)
     ms, plain_ms = _median_ms(kernel), _median_ms(plain)
-    (dev_ms, kernel_ms), (plain_dev_ms, _) = _device_ms(kernel, "tsdf_fuse"), _device_ms(plain)
+    (dev_ms, kernel_ms, n_rec), (plain_dev_ms, _, _) = _device_ms(kernel, "tsdf_fuse"), _device_ms(plain)
     del mk, mp
     _, t_carve = _event_ms(lambda: vm.integrate(m, *fuse_args[:2], rgb, depth, ht, lt, cam, pose, cfg, carve=True))
     # the least device-memory traffic of the kernel: per voxel the pool
     # state (6 x 4 B) and the prep (pix, z, d2r, gate: 4 x 4 B) read once,
     # the image read once, the pool state of updated voxels written once
     min_bytes = n_vis * 512 * 40 + img6.numel() * 4 + updated * 24
+    ops = n_vis * 512 * FUSE_OPS_PER_VOXEL + updated * FUSE_OPS_PER_UPDATE
+    bound_ms, bound_by = _bound(min_bytes, ops, F32_FLOPS_PER_S)
     print(
         f"tsdf_fuse at frame {FRAMES_BEFORE}: {n_vis} visible blocks ({n_vis * 512} voxels, "
-        f"{int(rel_k.sum())} released, {updated} voxels updated), "
-        f"per call (median of {REPEATS}, CUDA events, index validation included): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; device time per call "
+        f"{int(rel_k.sum())} released, {updated} voxels updated), each call after a "
+        f"{L2_FLUSH_BYTES >> 20} MiB L2 flush: per call (median of {REPEATS}, CUDA events, index "
+        f"validation included): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; device time per call "
         f"(torch.profiler, mean): kernel call {dev_ms:.4f} ms of which the kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_dev_ms:.4f} ms; kernel moves >= "
+        f"{kernel_ms:.4f} ms ({n_rec} of {REPEATS} launches recorded), plain {plain_dev_ms:.4f} ms; kernel moves >= "
         f"{min_bytes / 1e6:.1f} MB = {min_bytes / (kernel_ms / 1e3) / 1e9:.1f} GB/s, "
-        f"roofline share {min_bytes / HBM_BYTES_PER_S / (kernel_ms / 1e3):.3f} of 3.35 TB/s; {card}"
+        f"{ops / 1e6:.1f} M float32 ops; bound {bound_ms:.4f} ms ({bound_by}), share of the bound "
+        f"{bound_ms / kernel_ms:.3f} (kernel device time), {bound_ms / ms:.3f} (per call); {card}"
     )
     print(
         f"one frame by stage (ms, single run): allocate {t_alloc:.3f}, cull {t_cull:.3f}, "
         f"prep {t_prep:.3f}, integrate (prep+fuse+carve) {t_carve:.3f}; {card}"
     )
-    return {"max_abs_err": max(err.values()), "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max(err.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def phase_main_path(card):
@@ -282,6 +346,7 @@ def phase_main_path(card):
 def phase_hamming_vs_plain(dev, card):
     from ra_slam_tpu_torch.core.se3 import SE3
     from ra_slam_tpu_torch.eval.trajectory_bench import tracking_setup
+    from ra_slam_tpu_torch.features.matching import unpack_pm1
     from ra_slam_tpu_torch.features.orb import detect_and_describe
     from ra_slam_tpu_torch.features.pyramid import rgb_to_gray
     from ra_slam_tpu_torch.ops import hamming
@@ -302,6 +367,9 @@ def phase_hamming_vs_plain(dev, card):
         "bench 1000x20000": (words(1000), words(20000)),
         "tracking": (kp.desc, slam.state.track.lms.desc),
         "ragged 130x300": (words(130), words(300)),
+        "ragged 1001x129": (words(1001), words(129)),
+        "kb % 4 != 0 17x20001": (words(17), words(20001)),
+        "kb % 4 != 0 130x301": (words(130), words(301)),
         "empty 0x20000": (words(0), words(20000)),
         "empty 130x0": (words(130), words(0)),
     }
@@ -313,25 +381,56 @@ def phase_hamming_vs_plain(dev, card):
         if k.shape != (a.shape[0], b.shape[0]) or not torch.equal(k, p):
             raise AssertionError(f"hamming kernel vs plain differ at {name} {tuple(k.shape)}")
         print(f"hamming kernel == plain at {name}: [{a.shape[0]}, {b.shape[0]}], exact")
-        if k.numel() < 10**6:
+        if k.numel() < 10**7:
             continue
+        lib, lib_route = _pm1_product(unpack_pm1(a), unpack_pm1(b))
+        if not torch.equal((256.0 - lib()) / 2, k):
+            raise AssertionError(f"the +-1 product ({lib_route}) differs from the kernel at {name}")
         kern = lambda: hamming.hamming_matrix(a, b)
         plain = lambda: hamming.hamming_matrix_plain(a, b)
-        ms, plain_ms = _median_ms(kern), _median_ms(plain)
-        (_, kernel_dev), (plain_dev, _) = _device_ms(kern, "hamming"), _device_ms(plain)
+        ms, plain_ms, lib_ms = _median_ms(kern), _median_ms(plain), _median_ms(lib)
+        (_, kernel_dev, n_rec), (plain_dev, _, _) = _device_ms(kern, "hamming"), _device_ms(plain)
         nbytes = k.numel() * 4 + (a.shape[0] + b.shape[0]) * 32
+        # the work as a +-1 int8 product (2 * 256 operations per output):
+        # the data sheet gives no binary tensor-core rate
+        bound_ms, bound_by = _bound(nbytes, k.numel() * 2 * 256, INT8_OPS_PER_S)
         print(
-            f"hamming at {name} [{a.shape[0]}, {b.shape[0]}]: per call (median of {REPEATS}, "
-            f"CUDA events): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; device time "
-            f"(torch.profiler, mean): kernel {kernel_dev:.4f} ms, plain {plain_dev:.4f} ms; "
-            f"bytes {nbytes / 1e6:.2f} MB = {nbytes / (kernel_dev / 1e3) / 1e9:.1f} GB/s, "
-            f"share {nbytes / HBM_BYTES_PER_S / (kernel_dev / 1e3):.3f} of 3.35 TB/s; {card}"
+            f"hamming at {name} [{a.shape[0]}, {b.shape[0]}], each call after a {L2_FLUSH_BYTES >> 20} MiB "
+            f"L2 flush: per call (median of {REPEATS}, CUDA events): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library ({lib_route}, then (256 - x) / 2 equal to the kernel) "
+            f"{lib_ms:.4f} ms; device time (torch.profiler, mean): kernel {kernel_dev:.4f} ms ({n_rec} of "
+            f"{REPEATS} launches recorded), plain "
+            f"{plain_dev:.4f} ms; {nbytes / 1e6:.2f} MB = {nbytes / (kernel_dev / 1e3) / 1e9:.1f} GB/s; "
+            f"bound {bound_ms:.4f} ms ({bound_by}), share of the bound: kernel {bound_ms / kernel_dev:.3f} "
+            f"(device time), {bound_ms / ms:.3f} (per call), library {bound_ms / lib_ms:.3f} (per call); {card}"
         )
-        out[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+        out[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
     print(f"tracking shape after {TRACK_WARM} frames: {kp.desc.shape[0]} keypoint slots "
           f"({int(kp.valid.sum())} valid) x {slam.state.track.lms.desc.shape[0]} landmark slots "
           f"({n_lm} live)")
     return out["tracking"]
+
+
+def _pm1_product(a_pm1, b_pm1):
+    """The library yardstick of the Hamming kernel, never called by the
+    port: one PyTorch call of the +-1 product that the JAX package takes
+    off the TPU (`features/matching.py:hamming_matrix`), writing the same
+    float32 [Ka, Kb] bytes. bf16 operands with a float32 product
+    (`torch.mm(..., out_dtype=)`) where this torch has it, else float32
+    operands with TF32 allowed for that call only. Returns (call, route)."""
+    a16, b16 = a_pm1.to(torch.bfloat16), b_pm1.to(torch.bfloat16)
+    try:
+        torch.mm(a16[:1], b16[:1].T, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        def tf32():
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return torch.mm(a_pm1, b_pm1.T)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        return tf32, "float32 mm, TF32"
+    return (lambda: torch.mm(a16, b16.T, out_dtype=torch.float32)), "bf16 mm, float32 out"
 
 
 def phase_tracking_path(card):

@@ -20,8 +20,6 @@ import torch
 from ra_slam_tpu_torch.ops._build import load_library
 
 WORDS = 8
-_TILE_A = 64  # rows of A per CTA (csrc/hamming.cu)
-_MAX_GRID_Y = 65535
 
 LAUNCHES = 0  # kernel launches made by hamming_matrix (CUDA path only)
 
@@ -78,9 +76,10 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise RuntimeError(f"hamming_matrix: no kernel for device {dev}")
     _check(desc_a, desc_b)
+    for name, t in (("desc_a", desc_a), ("desc_b", desc_b)):
+        if t.data_ptr() % 8:  # the kernel reads words in 8-byte pairs
+            raise ValueError(f"hamming_matrix: {name} does not start on an 8-byte boundary")
     ka, kb = desc_a.shape[0], desc_b.shape[0]
-    if (ka + _TILE_A - 1) // _TILE_A > _MAX_GRID_Y:
-        raise ValueError(f"hamming_matrix: {ka} rows exceed the kernel's grid")
     out = torch.empty(ka, kb, dtype=torch.float32, device=dev)
     if ka == 0 or kb == 0:
         return out

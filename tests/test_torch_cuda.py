@@ -114,9 +114,16 @@ def test_integrate_frame_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ka,kb", [(1000, 20000), (130, 300), (1, 1), (64, 128), (0, 17), (5, 0)])
+@pytest.mark.parametrize("ka,kb", [
+    (1000, 20000), (130, 300), (1, 1), (64, 128), (0, 17), (5, 0),
+    (600, 20000),  # the tracking shape
+    (17, 20001), (130, 301),  # kb % 4 != 0: rows not 16-byte aligned, 4-byte stores
+    (1001, 129),  # ka not a multiple of 16, over more than one 128-row tile
+    (128, 128),  # one exact 128 x 128 tile
+])
 def test_hamming_kernel_matches_plain(cuda, ka, kb):
-    """Exact: both count bits, so every distance must agree."""
+    """Exact: both count bits, so every distance must agree. The edge
+    cases follow csrc/hamming.cu's 128 x 128 tiles."""
     rng = np.random.default_rng(ka * 7 + kb)
     a = torch.as_tensor(rng.integers(-2**31, 2**31, (ka, 8), dtype=np.int64).astype(np.int32), device=cuda)
     b = torch.as_tensor(rng.integers(-2**31, 2**31, (kb, 8), dtype=np.int64).astype(np.int32), device=cuda)

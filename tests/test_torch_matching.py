@@ -44,6 +44,31 @@ def test_hamming_plain_equals_popcount_and_pallas(ka, kb):
     assert th.LAUNCHES == n0
 
 
+@pytest.mark.parametrize("ka,kb", [(1, 1), (130, 300), (300, 130), (257, 511), (64, 128)])
+def test_pm1_product_identity(ka, kb):
+    """The identities the CUDA kernel and chip_smoke.py's library
+    yardstick rely on, exactly: (256 - pm1(a) @ pm1(b)^T) / 2, in int32
+    from the port's unpack_pm1 (the yardstick), and popc(a) + popc(b) -
+    2 popc(a & b) summed over the words (the kernel's binary tensor-core
+    product) both equal the popcount distances and the JAX package's
+    route off the TPU."""
+    rng = np.random.default_rng(ka * 1000 + kb + 1)
+    a, b = _desc(rng, ka), _desc(rng, kb)
+    b[0] = a[0]  # distance 0
+    a[-1] = ~b[-1]  # distance 256
+    ta, tb = _t(a), _t(b)
+    pa, pb = tm.unpack_pm1(ta).to(torch.int32), tm.unpack_pm1(tb).to(torch.int32)
+    dot = pa @ pb.T
+    assert ((256 - dot) % 2 == 0).all()
+    dist = ((256 - dot) // 2).numpy()
+    popc = lambda x: th._popcount32(x).sum(-1)
+    both = sum(th._popcount32(ta[:, w, None] & tb[None, :, w]) for w in range(th.WORDS))
+    np.testing.assert_array_equal((popc(ta)[:, None] + popc(tb)[None, :] - 2 * both).numpy(), dist)
+    np.testing.assert_array_equal(dist, th.hamming_matrix_plain(ta, tb).numpy())
+    np.testing.assert_array_equal(dist, np.asarray(jm.hamming_matrix(jnp.asarray(a), jnp.asarray(b))))
+    assert dist[-1, -1] == 256 and dist.min() == (0 if ka * kb > 1 else 256)
+
+
 @pytest.mark.parametrize("ka,kb", [(0, 5), (5, 0), (0, 0)])
 def test_hamming_empty_sides(ka, kb):
     rng = np.random.default_rng(1)
