@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Run from the root of the repository. Ten phases, none of whose failures
-is caught:
+Run from the root of the repository. Ten phases and two of the map
+readers (3b, 3c), none of whose failures is caught:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      and the builds of the CUDA kernels from csrc/ (the fuse kernel and
@@ -18,9 +18,27 @@ is caught:
      times, each call after a 256 MiB write that flushes the L2, and the
      kernel's share of its bound (bytes over 3.35 TB/s against float32
      operations over 67 TFLOP/s);
-  3. the known-pose fusion path: `ra_slam_tpu_torch.pipeline.offline_eval`
-     over 60 frames on cuda, with the kernel's launch count read around
-     it, and the dumped map checked against the room's known geometry;
+  3. the known-pose fusion path: `ra_slam_tpu_torch.pipeline.offline_eval
+     --download` over 60 frames on cuda, with the kernel's launch count
+     read around it, and the dumped map checked against the room's known
+     geometry; the mesh it dumps (marching tetrahedra) checked too:
+     counts equal to the result line, indices in range, no degenerate
+     triangle, 95% of the vertices within 2 voxels of a wall, mean vertex
+     prob > 0.8 on the high-touch wall; the extraction's wall time in
+     the CLI (cold) and again on the same map (warm, median of 3), its
+     peak device memory;
+ 3b. raycast on phase 3's map: `RaSlamSystem.render` at the 60 orbit
+     poses at VGA, no shell block dropped at any, CUDA events around each
+     render (renders/s, peak memory); at frame 0's pose the rendered
+     depth against the dataset's analytic depth (coverage > 0.7, RMSE <
+     3 voxels);
+ 3c. the readers on the card against the same on the CPU: the analytic
+     box room at 4 cm built on both, meshed on both (counts and indices
+     exactly equal, vertices and probabilities within one u16 step) and
+     rendered at one VGA pose on both (hit mask and dropped count equal,
+     depth within 1e-5 but where two splats within one 13-bit depth step
+     swap, at most 0.1% of the hits, normal 1e-5 and rgba 1e-3 away from
+     those);
   4. the Hamming kernel against its plain PyTorch version, exactly equal,
      at the bench case 1000 x 20000 with random words, at the tracking
      shape (the frame's descriptors against the landmark map after a few
@@ -290,19 +308,48 @@ def phase_kernel_vs_plain(dev, card):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+class _MeshCall:
+    """Wraps `RaSlamSystem.download_all_mesh` while entered: the wall
+    time of its call (extraction and the three file writes) and the
+    system it was called on."""
+
+    def __enter__(self):
+        from ra_slam_tpu_torch.pipeline.system import RaSlamSystem
+
+        self.cls, self.saved = RaSlamSystem, RaSlamSystem.download_all_mesh
+
+        def timed(system, *paths):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.saved(system, *paths)
+            self.seconds, self.system = time.perf_counter() - t0, system
+            return out
+
+        RaSlamSystem.download_all_mesh = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.download_all_mesh = self.saved
+
+
 def phase_main_path(card):
+    from ra_slam_tpu_torch.map.meshing import extract_mesh
     from ra_slam_tpu_torch.ops import tsdf_fuse
     from ra_slam_tpu_torch.pipeline import offline_eval
 
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, _MeshCall() as mesh_call:
         tsdf_fuse.LAUNCHES = 0
         r = offline_eval.main(
             ["--synthetic", "--max-frames", str(MAIN_FRAMES), "--download", tmp]
         )
         launches = tsdf_fuse.LAUNCHES
         rows = np.fromfile(os.path.join(tmp, "tsdf.bin"), "<f4").reshape(-1, 5)
+        verts = np.fromfile(os.path.join(tmp, "mesh_vertices.bin"), "<f4").reshape(-1, 3)
+        tris = np.fromfile(os.path.join(tmp, "mesh_indices.bin"), "<i4").reshape(-1, 3)
+        vprob = np.fromfile(os.path.join(tmp, "mesh_vertices_prob.bin"), "<f4")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    system = mesh_call.system
 
     if r["frames"] != MAIN_FRAMES:
         raise AssertionError(f"fused {r['frames']} of {MAIN_FRAMES} frames")
@@ -335,12 +382,156 @@ def phase_main_path(card):
 
     print(
         f"main path: {r['frames']} frames, {r['fps']} fused frames/s end to end "
-        f"(incl. host rendering of the synthetic frames), "
+        f"(incl. host rendering of the synthetic frames; the dumps come after), "
         f"{r['frames'] / r['integrate_s']:.2f} frames/s inside feed_rgbd_frame; "
         f"{r['num_active']} active blocks, {r['tsdf_rows']} voxels dumped, "
         f"{launches} kernel launches, peak device memory {peak_gb:.2f} GiB; {card}"
     )
-    return launches
+
+    # the mesh: counts, indices, the walls, the high-touch wall
+    nv, nt = r["mesh_vertices"], r["mesh_triangles"]
+    if not (len(verts) == nv == len(vprob) and len(tris) == nt and nt > 0):
+        raise AssertionError(f"mesh dumps hold {len(verts)} / {len(tris)} / {len(vprob)}, the run reported {nv} / {nt}")
+    if not (tris.min() >= 0 and tris.max() < nv):
+        raise AssertionError("mesh index out of range")
+    if ((tris[:, 0] == tris[:, 1]) | (tris[:, 1] == tris[:, 2]) | (tris[:, 0] == tris[:, 2])).any():
+        raise AssertionError("degenerate mesh triangle")
+    wall_d = np.min(np.abs(np.abs(verts) - np.array([3.0, 2.0, 3.0])[None]), axis=1)
+    p95 = float(np.percentile(wall_d, 95))
+    ht_wall = verts[:, 0] > 2.95
+    p_ht_mesh = float(vprob[ht_wall].mean()) if ht_wall.any() else float("nan")
+    cfg = system.cfg.tsdf
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        v2, i2, p2 = extract_mesh(system.map, cfg)
+        warm.append(time.perf_counter() - t0)
+        mesh_gb = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    if not (np.array_equal(i2, tris) and np.array_equal(v2, verts) and np.array_equal(p2, vprob)):
+        raise AssertionError("a second extraction of the same map differs")
+    print(
+        f"mesh of the main path's map: {nt} triangles, {nv} vertices; vertex distance to the walls "
+        f"p95 {p95:.5f} m (bound {2 * cfg.voxel_size} m), mean vertex prob +x wall {p_ht_mesh:.4f} "
+        f"({int(ht_wall.sum())} vertices); extraction wall time (extract_mesh, numpy out): cold "
+        f"{mesh_call.seconds:.3f} s (first call in the process, in the CLI, with the three file writes), "
+        f"warm {float(np.median(warm)):.3f} s (median of 3: {', '.join(f'{t:.3f}' for t in warm)}); "
+        f"peak device memory of one extraction above the map {mesh_gb:.2f} GiB; {card}"
+    )
+    if not p95 < 2 * cfg.voxel_size:
+        raise AssertionError(f"mesh vertices p95 {p95} m from the walls")
+    if not p_ht_mesh > 0.8:
+        raise AssertionError(f"mesh vertex prob on the high-touch wall {p_ht_mesh}")
+    return launches, system
+
+
+def phase_raycast(system, card):
+    """3b: the facade's render at the main path's 60 orbit poses."""
+    from ra_slam_tpu_torch.core.se3 import SE3
+    from ra_slam_tpu_torch.pipeline import offline_eval
+
+    ds = offline_eval.load_dataset(offline_eval.build_parser().parse_args(["--synthetic"]))
+    cfg = system.cfg.tsdf
+    poses = [np.linalg.inv(ds.world_T_cam(i).astype(np.float64)).astype(np.float32)
+             for i in range(MAIN_FRAMES)]
+    system.render(SE3.from_matrix(torch.as_tensor(poses[1])))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    times, dropped, hits = [], [], []
+    for p in poses:
+        out, ms = _event_ms(lambda: system.render(SE3.from_matrix(torch.as_tensor(p))))
+        times.append(ms)
+        dropped.append(int(out["dropped_splats"]))
+        hits.append(float(out["hit"].float().mean()))
+        if len(times) == 1:
+            depth0, hit0 = out["depth"].cpu().numpy(), out["hit"].cpu().numpy()
+    peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    gt = ds.frame(0).depth
+    sel = hit0 & (gt > 0)
+    rmse = float(np.sqrt(np.mean((depth0[sel] - gt[sel]) ** 2)))
+    total_s = sum(times) / 1e3
+    print(
+        f"raycast sweep: {len(poses)} VGA renders of the main path's map (RaSlamSystem.render), "
+        f"{len(poses) / total_s:.2f} renders/s (CUDA events around each render: median "
+        f"{float(np.median(times)):.3f} ms, min {min(times):.3f}, max {max(times):.3f}), hit share "
+        f"{min(hits):.3f}-{max(hits):.3f}, dropped splats max {max(dropped)}; frame 0 against the "
+        f"analytic depth: coverage {sel.mean():.4f}, RMSE {rmse:.5f} m (bound {3 * cfg.voxel_size} m); "
+        f"peak device memory of a render above the map {peak_gb:.3f} GiB; {card}"
+    )
+    if max(dropped) != 0:
+        raise AssertionError(f"raycast dropped shell blocks: {dropped}")
+    if not (sel.mean() > 0.7 and rmse < 3 * cfg.voxel_size):
+        raise AssertionError(f"raycast depth: coverage {sel.mean()}, RMSE {rmse} m")
+
+
+def phase_readers_device_vs_cpu(dev, card):
+    """3c: meshing and raycast of one map on the card and on the CPU."""
+    from ra_slam_tpu_torch.core.config import TsdfConfig
+    from ra_slam_tpu_torch.core.se3 import SE3
+    from ra_slam_tpu_torch.map.meshing import extract_mesh
+    from ra_slam_tpu_torch.map.raycast import raycast
+    from ra_slam_tpu_torch.map.synthetic_map import analytic_box_map
+    from ra_slam_tpu_torch.pipeline import offline_eval
+
+    ds = offline_eval.load_dataset(offline_eval.build_parser().parse_args(["--synthetic"]))
+    cfg = TsdfConfig(voxel_size=0.04, truncation=0.12, log2_num_blocks=14, log2_hash_size=16,
+                     max_visible_blocks=1 << 14, width=640, height=480)
+    maps = {}
+    for d in ("cpu", dev):
+        m = analytic_box_map(cfg, d)
+        # colour and probability fields that vary, the same on both devices
+        x = torch.arange(512, device=m.device)
+        act = m.active[:, None]
+        m.prob.copy_(torch.where(act, (x % 97).to(torch.float32) / 96.0, m.prob))
+        for c in range(3):
+            m.rgb[:, c].copy_(torch.where(act, ((x * (7 + c)) % 256).to(torch.float32), m.rgb[:, c]))
+        maps[str(d)] = m
+    n_blocks = int(maps["cpu"].active.sum())
+    (cv, ci, cp) = extract_mesh(maps["cpu"], cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gv, gi, gp = extract_mesh(maps[str(dev)], cfg)
+    mesh_s = time.perf_counter() - t0
+    if not (ci.shape == gi.shape and cv.shape == gv.shape and np.array_equal(ci, gi)):
+        raise AssertionError(f"mesh card vs CPU: {gi.shape} / {ci.shape} triangles, indices differ")
+    v_steps = float((np.abs(cv - gv) / ((cv.max(0) - cv.min(0)) / 65535.0)).max())
+    p_steps = float(np.abs(cp - gp).max() * 65535.0)
+
+    pose = np.linalg.inv(ds.world_T_cam(0).astype(np.float64)).astype(np.float32)
+    out = {}
+    for d, m in maps.items():
+        out[d] = {k: v.cpu().numpy() for k, v in raycast(
+            m, ds.camera, SE3.from_matrix(torch.as_tensor(pose, device=m.device)), cfg).items()}
+    c, g = out["cpu"], out[str(dev)]
+    dz = np.abs(c["depth"] - g["depth"])
+    flipped = dz > 1e-5
+    near = flipped.copy()
+    for ax in (0, 1):
+        for sh in (-1, 1):
+            near |= np.roll(flipped, sh, axis=ax)
+    n_err = float(np.abs(c["normal"] - g["normal"])[~near].max())
+    c_err = float(np.abs(c["rgba"] - g["rgba"])[~near].max())
+    zstep = (cfg.max_depth - cfg.min_depth) / 8191
+    print(
+        f"readers card vs CPU (analytic room at {cfg.voxel_size} m, {n_blocks} blocks): mesh {len(gi)} "
+        f"triangles, {len(gv)} vertices, indices equal; vertices within {v_steps:.3f} u16 steps, probs "
+        f"within {p_steps:.3f} (bound 1); card extraction {mesh_s:.3f} s; render at frame 0's pose: "
+        f"{int(c['hit'].sum())} hits, hit masks equal {np.array_equal(c['hit'], g['hit'])}, depth "
+        f"max |diff| {float(dz.max()):.3g} m, {int(flipped.sum())} pixels swapped winners (bound "
+        f"{1e-3 * c['hit'].sum():.0f}), normal {n_err:.3g} (bound 1e-5), rgba {c_err:.3g} (bound 1e-3) "
+        f"elsewhere; {card}"
+    )
+    if not (v_steps <= 1.001 and p_steps <= 1.001):
+        raise AssertionError(f"mesh card vs CPU: {v_steps} / {p_steps} u16 steps")
+    if not (np.array_equal(c["hit"], g["hit"]) and int(c["dropped_splats"]) == int(g["dropped_splats"])):
+        raise AssertionError("raycast card vs CPU: hit masks or dropped counts differ")
+    if not (flipped.sum() <= 1e-3 * c["hit"].sum() and dz.max() <= zstep + 1e-5):
+        raise AssertionError(f"raycast card vs CPU: {int(flipped.sum())} swapped, depth {dz.max()}")
+    if not (n_err <= 1e-5 and c_err <= 1e-3):
+        raise AssertionError(f"raycast card vs CPU: normal {n_err}, rgba {c_err}")
 
 
 def phase_hamming_vs_plain(dev, card):
@@ -697,7 +888,10 @@ def main():
     print(f"builds done in {time.perf_counter() - t0:.2f} s (in parallel)")
 
     numbers = phase_kernel_vs_plain(dev, card)
-    launches = phase_main_path(card)
+    launches, system = phase_main_path(card)
+    phase_raycast(system, card)
+    del system
+    phase_readers_device_vs_cpu(dev, card)
     ham_numbers = phase_hamming_vs_plain(dev, card)
     ham_launches, ate_loop_off = phase_tracking_path(card)
     loop_launches, slam = phase_loop_tracking(card, ate_loop_off)

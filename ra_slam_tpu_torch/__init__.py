@@ -21,15 +21,19 @@ Subpackages
 core      SE3/SO(3), pinhole camera, configuration dataclasses
 features  pyramid, FAST, ORB descriptors, descriptor matching
 io        RGB-D frame/dataset types, synthetic box-room dataset,
-          the trajectory file format
-map       block keys, spatial hash, the voxel map and its fusion step
+          the trajectory file format, a PNG writer
+map       block keys, spatial hash, the voxel map and its fusion step,
+          raycast rendering, marching-tetrahedra meshing, the analytic
+          box-room map
 ops       hand-written device kernels and their plain versions
 slam      landmarks, motion-only GN, tracking, keyframes, pose-graph
           edges, loop detection, relocalization, SlamSystem
 models    segmentation engine (fake mode)
-pipeline  RaSlamSystem facade, offline_eval CLI
-eval      ATE/RPE, the tracking trajectory bench
-utils     pose buffer; map and SLAM state to and from the JAX package
+pipeline  RaSlamSystem facade, offline_eval CLI, map viewer CLI
+eval      ATE/RPE, the tracking trajectory bench, PLY I/O, ScanNet
+          semantic evaluation, the mesh-dump reader
+utils     pose buffer; map and SLAM state to and from the JAX package;
+          npz checkpoints
 """
 
 __version__ = "0.1.0"

@@ -1,2 +1,3 @@
-"""Evaluation: trajectory metrics and the trajectory bench (counterpart
-of `ra_slam_tpu.eval`)."""
+"""Evaluation: trajectory metrics, the trajectory bench, PLY I/O, the
+ScanNet semantic evaluation and the mesh-dump reader (counterpart of
+`ra_slam_tpu.eval`)."""

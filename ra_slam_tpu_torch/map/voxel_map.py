@@ -117,6 +117,13 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+def _div(a: torch.Tensor, c: float) -> torch.Tensor:
+    """a / c rounded as IEEE division on every device: CUDA divides by a
+    Python scalar through its reciprocal, which can differ in the last
+    bit from the CPU (and from JAX)."""
+    return a / torch.tensor(c, dtype=a.dtype, device=a.device)
+
+
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
     """float -> int32, saturating out-of-range values like XLA's
     conversion (a bare cast gives INT_MIN for +huge on x86)."""

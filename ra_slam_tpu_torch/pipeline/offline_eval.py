@@ -4,17 +4,21 @@
 Replays a dataset, segments each frame (fake mode), and fuses it into
 the semantic TSDF on `--device`: at its ground-truth pose, or with
 `--use-slam` at the pose the SLAM system tracks (frames it loses are not
-fused; the SLAM world is the first camera's frame). Optionally dumps the
-semantic voxels as `tsdf.bin` (packed (x, y, z, tsdf, prob) float32
-rows, the reference's metric input) and the tracked trajectory. Prints
-one JSON line with the JAX CLI's result keys, ATE/RPE of the tracked
-trajectory included; the mesh keys wait for the meshing port.
+fused; the SLAM world is the first camera's frame). With `--download`
+it dumps the semantic voxels as `tsdf.bin` (packed (x, y, z, tsdf, prob)
+float32 rows, the reference's metric input) and the mesh as
+`mesh_vertices.bin`, `mesh_indices.bin` and `mesh_vertices_prob.bin`;
+`--eval-gt` scores `tsdf.bin` against a labeled ScanNet mesh, and
+`--render-every N` writes a raycast `render_{i:05d}.png` of every N-th
+frame into the same directory. Prints one JSON line with the JAX CLI's
+result keys, ATE/RPE of the tracked trajectory included.
 
     python -m ra_slam_tpu_torch.pipeline.offline_eval --synthetic \\
-        --max-frames 60 --download out/ [--use-slam]
+        --max-frames 60 --download out/ [--use-slam] [--render-every 10] \\
+        [--eval-gt scene_vh_clean_2.labels.ply]
 
-The `.sens` and folder readers are not ported yet (they need cv2 and
-yaml); those flags raise.
+The `.sens` and folder readers (they need cv2 and yaml) and the
+segmentation model are not ported yet; those flags raise.
 """
 
 from __future__ import annotations
@@ -35,14 +39,21 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument("--folder", help="logged folder dataset path (not ported yet)")
     src.add_argument("--synthetic", action="store_true",
                      help="synthetic box-room orbit")
+    p.add_argument("--model", default=None,
+                   help="segmentation checkpoint (not ported yet; absent -> fake maps)")
     p.add_argument("--use-slam", action="store_true",
                    help="track with the SLAM system instead of the ground-truth poses")
-    p.add_argument("--download", default=None, help="output dir for tsdf.bin")
+    p.add_argument("--download", default=None,
+                   help="output dir for tsdf.bin + mesh dumps")
+    p.add_argument("--eval-gt", default=None,
+                   help="ScanNet *_vh_clean_2.labels.ply for IoU scoring (with --download)")
     p.add_argument("--max-frames", type=int, default=0, help="0 = all")
     p.add_argument("--voxel-size", type=float, default=0.01)
     p.add_argument("--truncation", type=float, default=0.06)
     p.add_argument("--max-depth", type=float, default=6.0)
     p.add_argument("--log2-blocks", type=int, default=17)
+    p.add_argument("--render-every", type=int, default=0,
+                   help="dump a raycast PNG every N frames into --download")
     p.add_argument("--trajectory-out", default=None,
                    help="save the (SLAM) trajectory in id + 3x4 format")
     p.add_argument("--device", default="cuda",
@@ -100,7 +111,8 @@ def main(argv=None) -> dict:
     ds = load_dataset(args)
     n = len(ds) if args.max_frames == 0 else min(args.max_frames, len(ds))
     cfg = system_config(ds.camera, args)
-    sys_ = RaSlamSystem(cfg, args.device, enable_tracking=args.use_slam)
+    sys_ = RaSlamSystem(cfg, args.device, segmentation_model=args.model,
+                        enable_tracking=args.use_slam)
 
     t_int = t_track = 0.0
     gt_traj = []  # (frame_id, 3x4) ground-truth rows for ATE
@@ -123,6 +135,13 @@ def main(argv=None) -> dict:
         ts = time.perf_counter()
         sys_.feed_rgbd_frame(fr.rgb, fr.depth, fr.timestamp, pose=pose, ht=fr.ht, lt=fr.lt)
         t_int += time.perf_counter() - ts
+
+        if args.render_every and args.download and i % args.render_every == 0:
+            from ra_slam_tpu_torch.io.png import write_png
+
+            os.makedirs(args.download, exist_ok=True)
+            rgba = sys_.render(pose)["rgba"].cpu().numpy().astype(np.uint8)
+            write_png(os.path.join(args.download, f"render_{i:05d}.png"), rgba)
     sys_.synchronize()
     wall = time.perf_counter() - t0
 
@@ -136,7 +155,19 @@ def main(argv=None) -> dict:
     }
     if args.download:
         os.makedirs(args.download, exist_ok=True)
-        result["tsdf_rows"] = sys_.download_all(os.path.join(args.download, "tsdf.bin"))
+        tsdf_path = os.path.join(args.download, "tsdf.bin")
+        result["tsdf_rows"] = sys_.download_all(tsdf_path)
+        nv, nt = sys_.download_all_mesh(
+            os.path.join(args.download, "mesh_vertices.bin"),
+            os.path.join(args.download, "mesh_indices.bin"),
+            os.path.join(args.download, "mesh_vertices_prob.bin"),
+        )
+        result["mesh_vertices"], result["mesh_triangles"] = nv, nt
+
+        if args.eval_gt:
+            from ra_slam_tpu_torch.eval.scannet_eval import ScannetEval
+
+            result["eval"] = ScannetEval(tsdf_path, args.eval_gt).summary()
 
     if args.use_slam:
         est_traj = sys_.slam.trajectory()

@@ -11,17 +11,18 @@ robot-facing API:
                              tracked pose of its timestamp
     query_tsdf()           — AABB voxel query for the planner
     query_camera_pose()    — tracked pose at a timestamp
+    render()               — raycast virtual view (`map/raycast.py`)
     download_all()         — reference-format (x, y, z, tsdf, prob) dump
+    download_all_mesh()    — reference-format mesh dump (`map/meshing.py`)
     semantic_voxels()      — the same rows as an array
 
-Raycast rendering, the mesh dump and resizing a frame to the map's feed
-size are not ported yet (ROADMAP).
+Resizing a frame to the map's feed size is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +30,8 @@ import torch
 from ra_slam_tpu_torch.core.camera import PinholeCamera
 from ra_slam_tpu_torch.core.config import SystemConfig, TrackingConfig
 from ra_slam_tpu_torch.core.se3 import SE3
+from ra_slam_tpu_torch.map.meshing import extract_mesh, save_mesh
+from ra_slam_tpu_torch.map.raycast import raycast
 from ra_slam_tpu_torch.map.voxel_map import (
     create_map,
     dump_semantic_tsdf,
@@ -175,9 +178,25 @@ class RaSlamSystem:
         with self._lock:
             return query_tsdf(self.map, self.cfg.tsdf, lo, hi)
 
+    def render(self, cam_T_world: SE3, cam: Optional[PinholeCamera] = None) -> dict:
+        """Raycast a virtual view (default: the map's feed camera); the
+        `raycast` dict of device tensors (depth, rgba, normal, hit,
+        dropped_splats)."""
+        pose = SE3(cam_T_world.R.to(self.device, torch.float32), cam_T_world.t.to(self.device, torch.float32))
+        with self._lock:
+            return raycast(self.map, cam or self.tsdf_cam, pose, self.cfg.tsdf)
+
     def download_all(self, path: str) -> int:
         with self._lock:
             return dump_semantic_tsdf(self.map, self.cfg.tsdf, path)
+
+    def download_all_mesh(self, vertices_path: str, indices_path: str, prob_path: str) -> Tuple[int, int]:
+        """Extract the mesh and write the three `.bin` dumps; returns
+        (vertices, triangles)."""
+        with self._lock:
+            verts, idx, probs = extract_mesh(self.map, self.cfg.tsdf)
+        save_mesh(verts, idx, probs, vertices_path, indices_path, prob_path)
+        return len(verts), len(idx)
 
     def semantic_voxels(self) -> np.ndarray:
         with self._lock:

@@ -1,7 +1,7 @@
 """Tests of the PyTorch port that need the GPU: the CUDA fuse and
 Hamming kernels against their plain PyTorch versions, and the fusion
-path on the card against the same path on the CPU. They skip where torch sees no CUDA
-device. This file imports no JAX, so that it runs on a machine without
+path, raycast and meshing on the card against the same on the CPU. They
+skip where torch sees no CUDA device. This file imports no JAX, so that it runs on a machine without
 it; tests/conftest.py does import JAX, so run it there as
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -16,8 +16,11 @@ from ra_slam_tpu_torch.core.config import TsdfConfig
 from ra_slam_tpu_torch.core.se3 import SE3
 from ra_slam_tpu_torch.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
 from ra_slam_tpu_torch.map import voxel_map as vm
+from ra_slam_tpu_torch.map.meshing import extract_mesh
+from ra_slam_tpu_torch.map.raycast import raycast
+from ra_slam_tpu_torch.map.synthetic_map import analytic_box_map
 from ra_slam_tpu_torch.ops import hamming, tsdf_fuse
-from ra_slam_tpu_torch.utils.convert import voxel_map_to_numpy
+from ra_slam_tpu_torch.utils.convert import voxel_map_from_numpy, voxel_map_to_numpy
 
 # kernel vs plain: the same operations in the same order (no FMA
 # contraction, IEEE division), so only the device's log/exp/log1p differ
@@ -142,6 +145,69 @@ def test_hamming_kernel_matches_plain(cuda, ka, kb):
         assert k[0, 0] == 0
     if ka and kb > 1:
         assert k[-1, -1] == 256
+
+
+@pytest.mark.cuda
+def test_extract_mesh_cuda_matches_cpu(cuda):
+    """The analytic room built and meshed on each device: counts and
+    indices exactly equal (the merge and first-use numbering do not
+    depend on the device's sort or scatter order), vertices and
+    probabilities within one u16 step."""
+    cfg = TsdfConfig(voxel_size=0.04, truncation=0.12, log2_num_blocks=14, log2_hash_size=16)
+    out = {}
+    for dev in ("cpu", cuda):
+        m = analytic_box_map(cfg, dev, half_extents=(2.0, 1.5, 2.0))
+        # a probability field that varies, the same on both devices
+        x = (torch.arange(512, device=m.device) % 97).to(torch.float32) / 96.0
+        m.prob.copy_(torch.where(m.active[:, None], x, m.prob))
+        out[str(dev)] = extract_mesh(m, cfg, chunk=1000)
+    (cv, ci, cp), (gv, gi, gp) = out["cpu"], out[str(cuda)]
+    assert len(ci) > 10000
+    assert ci.shape == gi.shape and cv.shape == gv.shape
+    np.testing.assert_array_equal(ci, gi)
+    step = (cv.max(0) - cv.min(0)) / 65535.0
+    assert (np.abs(cv - gv) / step).max() <= 1.001
+    assert np.abs(cp - gp).max() * 65535.0 <= 1.001
+
+
+@pytest.mark.cuda
+def test_raycast_cuda_matches_cpu(cuda):
+    """12 frames of the small orbit fused on the CPU, the same map
+    carried to the card, rendered at three poses on both: hit mask and
+    dropped count equal; depth within 1e-5 but where two splats within
+    one 13-bit step swap (<= 0.1% of hits, within one step); normal 1e-5
+    and rgba 1e-3 away from those pixels."""
+    cfg = TsdfConfig(voxel_size=0.04, truncation=0.16, max_depth=6.0, raycast_min_weight=2.0,
+                     log2_num_blocks=12, log2_hash_size=14, max_visible_blocks=2048,
+                     max_new_blocks=4096, width=160, height=120)
+    spec = SyntheticCameraSpec(fx=80.0, fy=80.0, cx=79.5, cy=59.5, width=160, height=120)
+    ds = SyntheticBoxDataset(num_frames=12, cam=spec, radius=1.0, seed=0)
+    cam = PinholeCamera.create(80.0, 80.0, 79.5, 59.5, 160, 120)
+    m = vm.create_map(cfg, "cpu")
+    for i in range(12):
+        f = ds.frame(i)
+        tt = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+        vm.integrate_frame(m, tt(f.rgb), tt(f.depth), tt(f.ht), tt(f.lt), cam,
+                           SE3.from_matrix(tt(f.cam_T_world)), cfg, alloc_stride=2)
+    maps = {"cpu": m, str(cuda): voxel_map_from_numpy(voxel_map_to_numpy(m), cuda)}
+    zstep = (cfg.max_depth - cfg.min_depth) / 8191
+    for i in (0, 4, 9):
+        outs = {}
+        for dev, mm in maps.items():
+            pose = SE3.from_matrix(torch.as_tensor(ds.frame(i).cam_T_world, device=mm.device))
+            outs[dev] = {k: v.cpu().numpy() for k, v in raycast(mm, cam, pose, cfg).items()}
+        c, g = outs["cpu"], outs[str(cuda)]
+        np.testing.assert_array_equal(c["hit"], g["hit"])
+        assert int(c["dropped_splats"]) == int(g["dropped_splats"]) and c["hit"].sum() > 1000
+        dz = np.abs(c["depth"] - g["depth"])
+        flipped = dz > 1e-5
+        assert flipped.sum() <= 1e-3 * c["hit"].sum() and dz.max() <= zstep + 1e-5
+        near = flipped.copy()
+        for ax in (0, 1):
+            for sh in (-1, 1):
+                near |= np.roll(flipped, sh, axis=ax)
+        assert np.abs(c["normal"] - g["normal"])[~near].max() <= 1e-5
+        assert np.abs(c["rgba"] - g["rgba"])[~near].max() <= 1e-3
 
 
 def test_hamming_rejects_bad_inputs():

@@ -1,23 +1,32 @@
 """The known-pose CLI of the PyTorch port
 (ra_slam_tpu_torch/pipeline/offline_eval.py) against the JAX package's,
-on the CPU, and the port's import boundary (tests/test_torch_facade.py
-holds the facade's tracked fusion against JAX)."""
+on the CPU, its mesh, render and evaluation outputs, the map viewer, and
+the port's import boundary (tests/test_torch_facade.py holds the
+facade's tracked fusion against JAX)."""
 
 import os
 import subprocess
 import sys
 
+import cv2
 import jax
 import numpy as np
 import pytest
 import torch
 
 import torch_parity as tp
+from ra_slam_tpu.eval.scannet_eval import ScannetEval as JaxScannetEval
 from ra_slam_tpu.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
 from ra_slam_tpu.pipeline import offline_eval as jax_cli
+from ra_slam_tpu.pipeline import viewer as jax_viewer
 from ra_slam_tpu.pipeline.system import RaSlamSystem as JaxSystem
+from ra_slam_tpu_torch.core.config import TsdfConfig
+from ra_slam_tpu_torch.eval.ply import save_ply
 from ra_slam_tpu_torch.io import synthetic as tsyn
+from ra_slam_tpu_torch.map.synthetic_map import analytic_box_map
 from ra_slam_tpu_torch.pipeline import offline_eval as port_cli
+from ra_slam_tpu_torch.pipeline import viewer as port_viewer
+from ra_slam_tpu_torch.utils.checkpoint import save_pytree
 
 # the fast-tier arguments of tests/test_pipeline.py's CLI test
 ARGS = ["--synthetic", "--max-frames", "3", "--voxel-size", "0.05",
@@ -28,7 +37,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_offline_eval_matches_jax(tmp_path, monkeypatch):
     """Same counts as the JAX CLI, and a tsdf.bin with byte-equal xyz and
     tsdf/prob within the bounds. The JAX CLI runs op by op (see
-    tests/torch_parity.py); its mesh dump is not ported and is skipped."""
+    tests/torch_parity.py); its mesh dump, ~20 s op by op, is skipped
+    (tests/test_torch_meshing.py holds meshing against JAX)."""
     monkeypatch.setattr(JaxSystem, "download_all_mesh", lambda self, *paths: (0, 0))
     with jax.disable_jit():
         rj = jax_cli.main(ARGS + ["--download", str(tmp_path / "jax")])
@@ -59,14 +69,17 @@ def test_synthetic_frames_match_jax():
 
 
 _GUARD = r"""
-import importlib, pkgutil, sys
-for name in ("jax", "flax", "yaml", "cv2"):
+import importlib, os, pkgutil, sys, tempfile
+for name in ("jax", "flax", "yaml", "cv2", "PIL"):
     sys.modules[name] = None  # any import of them raises ImportError
 import ra_slam_tpu_torch
 from ra_slam_tpu_torch.pipeline import offline_eval
+out = tempfile.mkdtemp()
 r = offline_eval.main(["--synthetic", "--max-frames", "1", "--voxel-size", "0.05",
-                       "--truncation", "0.3", "--log2-blocks", "13", "--device", "cpu"])
-assert r["frames"] == 1 and r["num_active"] > 0, r
+                       "--truncation", "0.3", "--log2-blocks", "13", "--device", "cpu",
+                       "--download", out, "--render-every", "1"])
+assert r["frames"] == 1 and r["num_active"] > 0 and r["mesh_triangles"] > 0, r
+assert os.path.getsize(os.path.join(out, "render_00000.png")) > 0
 from ra_slam_tpu_torch.core.config import TrackingConfig
 from ra_slam_tpu_torch.eval import trajectory_bench
 for loop in (False, True):
@@ -88,6 +101,15 @@ fr = ds.frame(0)
 assert s.feed_tracking_frame(fr.rgb, fr.depth, fr.timestamp).tracked
 st = s.feed_rgbd_frame(fr.rgb, fr.depth, fr.timestamp, ht=fr.ht, lt=fr.lt)
 assert "skipped" not in st and s.num_integrated == 1 and st["num_active"] > 0, st
+assert s.render(s.query_camera_pose(fr.timestamp))["hit"].shape == (120, 160)
+assert s.download_all_mesh(*(os.path.join(out, n) for n in "vip"))[1] > 0
+from ra_slam_tpu_torch.pipeline import viewer
+from ra_slam_tpu_torch.utils.checkpoint import save_system
+save_system(os.path.join(out, "ckpt"), s)
+n = viewer.main(["--checkpoint", os.path.join(out, "ckpt"), "--out", os.path.join(out, "views"),
+                 "--orbit", "2", "--voxel-size", "0.05", "--truncation", "0.3", "--log2-blocks", "12",
+                 "--width", "160", "--height", "120", "--device", "cpu"])
+assert n == 2 and len(os.listdir(os.path.join(out, "views"))) == 4
 for mod in pkgutil.walk_packages(ra_slam_tpu_torch.__path__, "ra_slam_tpu_torch."):
     importlib.import_module(mod.name)
 leaked = [m for m in sys.modules if m == "ra_slam_tpu" or m.startswith("ra_slam_tpu.")]
@@ -97,11 +119,13 @@ print("GUARD_OK")
 
 
 def test_port_imports_without_jax_yaml_cv2():
-    """Every module of the port imports, one CPU frame fuses at a given
-    pose, three are tracked with loop closing off and three with it on,
-    and the facade tracks one frame and fuses it at the tracked pose,
-    with jax, flax, yaml and cv2 unavailable and no ra_slam_tpu module
-    loaded: the machine with the GPU has none of them."""
+    """Every module of the port imports; one CPU frame fuses at a given
+    pose and is meshed and rendered to PNG by the CLI; three are tracked
+    with loop closing off and three with it on; the facade tracks one
+    frame, fuses it at the tracked pose, renders and meshes it, and the
+    viewer renders its checkpoint: with jax, flax, yaml, cv2 and PIL
+    unavailable and no ra_slam_tpu module loaded (the machine with the
+    GPU has none of them)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
         [sys.executable, "-c", _GUARD], cwd=REPO, env=env,
@@ -137,3 +161,89 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
 def test_unported_readers_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         port_cli.main([flag, str(tmp_path), "--device", "cpu"])
+
+
+def test_offline_eval_mesh_render_and_eval(tmp_path):
+    """`--download --render-every --eval-gt`: the three mesh dumps hold
+    the counts of the result line, every index in range and no
+    degenerate triangle; the PNGs decode (cv2) to RGBA renders; the
+    `eval` summary equals the JAX ScannetEval's on the same tsdf.bin."""
+    he = np.array([3.0, 2.0, 3.0])  # the synthetic room; its +x wall is high touch
+    rng = np.random.default_rng(0)
+    v = rng.uniform(-he, he, (20000, 3))
+    axis = rng.integers(0, 3, len(v))
+    side = rng.choice([-1.0, 1.0], len(v))
+    v[np.arange(len(v)), axis] = side * he[axis]
+    labels = np.where((axis == 0) & (side > 0), 5, 1)  # nyu40 chair (high touch) / wall
+    gt = str(tmp_path / "gt.labels.ply")
+    save_ply(gt, v, np.zeros((0, 3), np.int32), vertex_labels=labels)
+    out = tmp_path / "out"
+    r = port_cli.main(ARGS[:2] + ["5"] + ARGS[3:] + [
+        "--device", "cpu", "--download", str(out), "--render-every", "4", "--eval-gt", gt])
+    nv, nt = r["mesh_vertices"], r["mesh_triangles"]
+    assert r["frames"] == 5 and nv > 1000 and nt > nv
+    verts = np.fromfile(out / "mesh_vertices.bin", np.float32).reshape(-1, 3)
+    idx = np.fromfile(out / "mesh_indices.bin", np.int32).reshape(-1, 3)
+    prob = np.fromfile(out / "mesh_vertices_prob.bin", np.float32)
+    assert verts.shape == (nv, 3) and idx.shape == (nt, 3) and prob.shape == (nv,)
+    assert idx.min() >= 0 and idx.max() < nv and ((prob >= 0) & (prob <= 1)).all()
+    assert ((idx[:, 0] != idx[:, 1]) & (idx[:, 1] != idx[:, 2]) & (idx[:, 0] != idx[:, 2])).all()
+    assert np.isfinite(verts).all() and (np.abs(verts) <= he + 0.2).all()
+
+    assert sorted(p.name for p in out.glob("render_*.png")) == ["render_00000.png", "render_00004.png"]
+    png = cv2.imread(str(out / "render_00004.png"), cv2.IMREAD_UNCHANGED)
+    assert png.shape == (480, 640, 4) and set(np.unique(png[..., 3])) == {0, 255}
+    assert (png[..., 3] == 255).mean() > 0.02  # after 5 frames, weights pass the render gate
+
+    assert r["eval"] == JaxScannetEval(str(out / "tsdf.bin"), gt).summary()
+    assert r["eval"]["recall"] > 0.5
+
+
+def test_model_flag_raises():
+    with pytest.raises(NotImplementedError, match="not ported"):
+        port_cli.main(ARGS + ["--model", "demo_seg.msgpack", "--device", "cpu"])
+
+
+def test_viewer_paths_match_jax():
+    """orbit_poses, follow_poses and shade_normal equal the JAX
+    viewer's."""
+    c = np.array([0.1, -0.2, 0.3])
+    np.testing.assert_allclose(np.stack(port_viewer.orbit_poses(c, 2.0, -0.5, 5)),
+                               np.stack(jax_viewer.orbit_poses(c, 2.0, -0.5, 5)), atol=0)
+    traj = [np.asarray(SyntheticBoxDataset(num_frames=12, cam=SyntheticCameraSpec(**tp.CAM_KW),
+                                           radius=1.0).frame(i).cam_T_world) for i in (0, 5)]
+    with jax.disable_jit():
+        j = jax_viewer.follow_poses(traj)
+    np.testing.assert_allclose(np.stack(port_viewer.follow_poses(traj)), np.stack(j), atol=1e-6)
+    rng = np.random.default_rng(0)
+    n = rng.uniform(-1, 1, (6, 7, 3)).astype(np.float32)
+    hit = rng.random((6, 7)) < 0.5
+    np.testing.assert_array_equal(port_viewer.shade_normal(n, hit), jax_viewer.shade_normal(n, hit))
+
+
+def test_viewer_cli_renders_a_checkpoint(tmp_path):
+    """`python -m ra_slam_tpu_torch.pipeline.viewer` on a map checkpoint:
+    an orbit and a follow path, RGBA and normal PNGs with hits."""
+    cfg = TsdfConfig(voxel_size=0.05, truncation=0.15, log2_num_blocks=13, log2_hash_size=15,
+                     width=160, height=120, raycast_min_weight=10.0)
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    save_pytree(str(ckpt / "map.npz"), analytic_box_map(cfg, "cpu", half_extents=(1.5, 1.0, 1.5)))
+    traj = tmp_path / "trajectory.txt"
+    traj.write_text("0 1 0 0 0 0 1 0 0 0 0 1 0\n")
+    views = tmp_path / "views"
+    n = port_viewer.main(["--checkpoint", str(ckpt), "--out", str(views), "--orbit", "3",
+                          "--trajectory", str(traj), "--voxel-size", "0.05", "--truncation", "0.15",
+                          "--log2-blocks", "13", "--width", "160", "--height", "120", "--device", "cpu"])
+    assert n == 4 and len(list(views.glob("*.png"))) == 8
+    for i in range(4):
+        rgba = cv2.imread(str(views / f"rgb_{i:05d}.png"), cv2.IMREAD_UNCHANGED)
+        normal = cv2.imread(str(views / f"normal_{i:05d}.png"), cv2.IMREAD_UNCHANGED)
+        assert rgba.shape == (120, 160, 4) and normal.shape == (120, 160, 3)
+        assert (rgba[..., 3] == 255).mean() > 0.01, i
+
+
+def test_viewer_cuda_without_gpu_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_viewer.main(["--checkpoint", str(tmp_path), "--out", str(tmp_path)])

@@ -57,6 +57,24 @@ def torch_cam() -> PinholeCamera:
     return PinholeCamera.create(c["fx"], c["fy"], c["cx"], c["cy"], c["width"], c["height"])
 
 
+def jax_fused_map(cfg: JaxTsdfConfig, step: int = 2):
+    """A JAX map fused over every `step`-th frame of the small orbit
+    (jitted: the map is only the input that raycast and meshing read in
+    both packages), with numpy leaves."""
+    import jax
+
+    from ra_slam_tpu.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
+    from ra_slam_tpu.map import voxel_map as jvm
+
+    ds = SyntheticBoxDataset(num_frames=N_FRAMES, cam=SyntheticCameraSpec(**CAM_KW), radius=1.0, seed=0)
+    fuse = jax.jit(lambda m, rgb, d, ht, lt, pose: jvm.integrate_frame(
+        m, rgb, d, ht, lt, ds.camera, pose, cfg, alloc_stride=2)[0])
+    m = jvm.create_map(cfg)
+    for i in range(0, N_FRAMES, step):
+        m = fuse(m, *jax_frame(ds.frame(i)))
+    return jax.tree.map(np.asarray, m), ds
+
+
 def jax_frame(f):
     """(rgb, depth, ht, lt, pose) of a Frame as JAX arrays."""
     return (
