@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
 
-Run from the root of the repository. Ten phases and two of the map
-readers (3b, 3c), none of whose failures is caught:
+Run from the root of the repository. Ten phases, two of the map
+readers (3b, 3c) and the recorded-data path (2b, 3d-3h), none of whose
+failures is caught:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-     and the builds of the CUDA kernels from csrc/ (the fuse kernel and
-     the Hamming kernel, one nvcc each, started together);
+     the builds of the CUDA kernels from csrc/ (the fuse kernel and the
+     Hamming kernel, one nvcc each, started together), and the JPEG
+     decoder probe (`ctypes.util.find_library` for turbojpeg, jpeg and
+     nvjpeg, nvjpeg under the CUDA toolkit; whether torchvision and
+     msgpack import);
   2. the kernel against its plain PyTorch version at the main path's
      shapes: after 10 fused frames of the VGA synthetic orbit at the
      offline_eval defaults (1 cm voxels, 2^17 blocks, 2^19 hash slots,
@@ -18,6 +22,9 @@ readers (3b, 3c), none of whose failures is caught:
      times, each call after a 256 MiB write that flushes the L2, and the
      kernel's share of its bound (bytes over 3.35 TB/s against float32
      operations over 67 TFLOP/s);
+ 2b. the main path's configuration fused over the orbit's first 3 VGA
+     frames on the card and on the CPU: keys, table, free stack and stats
+     exactly equal, the payload within TOL;
   3. the known-pose fusion path: `ra_slam_tpu_torch.pipeline.offline_eval
      --download` over 60 frames on cuda, with the kernel's launch count
      read around it, and the dumped map checked against the room's known
@@ -39,6 +46,23 @@ readers (3b, 3c), none of whose failures is caught:
      depth within 1e-5 but where two splats within one 13-bit depth step
      swap, at most 0.1% of the hits, normal 1e-5 and rgba 1e-3 away from
      those);
+ 3d. the recorded-data main path: 60 VGA orbit frames logged without
+     maps by the port's folder writer, `offline_eval --folder --model`
+     with the default-width UNet (random weights, a checkpoint the port
+     saves) on cuda: >= 60 fuse launches, no allocation failure, the
+     surface on the walls, prob in [0, 1]; fused f/s, the UNet's time per
+     frame (CUDA events around the forward and `segment`, the host clock
+     around `infer_one`), PNG decode ms per frame, peak memory;
+ 3e. `offline_eval --sens` over 20 frames the port writes as ScanNet lays
+     them out (PNG colour 1296x968, depth 640x480), the same gates; with
+     nvjpeg, the JPEG fixture (tests/data) against cv2's pixels;
+ 3f. the UNet on the card against the CPU (TF32 off): the default-width
+     net on a VGA frame, the trained (16, 32, 64) weights on two held-out
+     frames; the resizes on the card against the CPU, exactly;
+ 3g. the segmentation latency CLI at VGA (200 iterations), and the
+     forward alone against its bound (116.6 GFLOP over the bf16 peak);
+ 3h. scripts/score_torch_semantic.py on the card and on the CPU: 2D and
+     voxel IoUs within 0.005 of each other, beside SEMANTIC_r05.json's;
   4. the Hamming kernel against its plain PyTorch version, exactly equal,
      at the bench case 1000 x 20000 with random words, at the tracking
      shape (the frame's descriptors against the landmark map after a few
@@ -72,7 +96,7 @@ readers (3b, 3c), none of whose failures is caught:
   9. stereo tracking: 6 rectified VGA pairs through
      `SlamSystem.feed_stereo_frame`, every frame tracked within 0.1 m;
  10. a JSON line of the kernels' numbers (launches summed over every
-     path; times, bound and library time at the main path's shapes: the
+     path, 3d and 3e included; times, bound and library time at the main path's shapes: the
      fuse kernel at frame 10, the Hamming kernel at the tracking shape),
      then the result line.
 
@@ -88,6 +112,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import ExitStack
 
 import numpy as np
 import torch
@@ -103,6 +128,21 @@ STEREO_FRAMES = 6
 # the same operations summed in other orders)
 DEV_VS_CPU_TOL = 1e-4
 KERNELS = ("tsdf_fuse", "hamming")
+DEV_VS_CPU_FRAMES = 3  # VGA frames fused on the card and on the CPU (phase 2b)
+SENS_FRAMES = 20  # the .sens path's frames (phase 3e)
+SCANNET_COLOR = (1296, 968)  # ScanNet's colour size; its depth is 640x480
+SEG_ITERS = 200  # the segmentation latency CLI's iterations (phase 3g)
+# the UNet on the card against the CPU, and the port's against the JAX
+# net on the CPU (tests/test_torch_segmentation.py): bf16 summation order
+SEG_PROB_TOL, SEG_FLIP_SHARE = 0.06, 1e-3
+# nvjpeg's pixels against cv2's (libjpeg) on the JPEG fixture: another
+# IDCT and chroma upsampling (measured on the H100: max 81 levels, mean
+# 3.11, at the fixture's block of noise)
+JPEG_MAX_TOL, JPEG_MEAN_TOL = 96, 4.0
+RESCORE_TOL = 0.005  # the re-scored IoUs, card against the CPU
+# SEMANTIC_r05.json: the JAX package on one TPU v5e (accuracy, not speed)
+SEMANTIC_R05 = {"iou_2d_high_touch": 0.9695, "iou_2d_low_touch": 0.9899,
+                "voxel_iou_high_touch": 0.9754, "mutual_surface_voxels": 225941}
 REPEATS = 20
 # kernel vs plain: the same float32 operations in the same order (no FMA
 # contraction, IEEE division); only the device's log/exp/log1p and the
@@ -113,6 +153,7 @@ TOL = {"tsdf": 2e-5, "weight": 2e-5, "prob": 2e-5, "minabs": 2e-5, "rgb": 1e-3}
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 # float32 operations of the fuse kernel (csrc/tsdf_fuse.cu), each log, log1p
 # and exp counted as one: every voxel (sdf, the update gate, |tsdf| and the
 # block min) and, on top, every updated voxel (the weighted averages, the
@@ -308,6 +349,23 @@ def phase_kernel_vs_plain(dev, card):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _walls(rows):
+    """The surface voxels (|tsdf| < 0.2) of a tsdf.bin's rows, their
+    distance to the synthetic room's walls, the mask of those on its +x
+    wall and the mean prob there and on the other walls. The room is the
+    box |x| <= 3, |y| <= 2, |z| <= 3 m; its +x wall is the high-touch
+    class (p = 0.95, the other walls 0.05). Raises on values outside
+    tsdf [-1, 1] / prob [0, 1]."""
+    tsdf, prob = rows[:, 3], rows[:, 4]
+    if not (np.isfinite(rows).all() and (np.abs(tsdf) <= 1).all() and ((prob >= 0) & (prob <= 1)).all()):
+        raise AssertionError("tsdf.bin holds values outside tsdf [-1, 1] / prob [0, 1]")
+    surf = rows[np.abs(tsdf) < 0.2]
+    x, y, zz = np.abs(surf[:, 0]), np.abs(surf[:, 1]), np.abs(surf[:, 2])
+    dist = np.abs(np.minimum(np.minimum(3.0 - x, 2.0 - y), 3.0 - zz))
+    near_ht = surf[:, 0] > 2.95
+    return surf, dist, near_ht, surf[near_ht, 4].mean(), surf[surf[:, 0] < 2.9, 4].mean()
+
+
 class _MeshCall:
     """Wraps `RaSlamSystem.download_all_mesh` while entered: the wall
     time of its call (extraction and the three file writes) and the
@@ -359,17 +417,7 @@ def phase_main_path(card):
         raise AssertionError(f"the main path launched the kernel {launches} times")
     if r["tsdf_rows"] <= 0 or len(rows) != r["tsdf_rows"]:
         raise AssertionError(f"tsdf.bin holds {len(rows)} rows, the run reported {r['tsdf_rows']}")
-    tsdf, prob = rows[:, 3], rows[:, 4]
-    if not (np.isfinite(rows).all() and (np.abs(tsdf) <= 1).all() and ((prob >= 0) & (prob <= 1)).all()):
-        raise AssertionError("tsdf.bin holds values outside tsdf [-1, 1] / prob [0, 1]")
-
-    # the room is the box |x| <= 3, |y| <= 2, |z| <= 3 m, and its +x wall
-    # is the high-touch class (p = 0.95, the other walls 0.05)
-    surf = rows[np.abs(tsdf) < 0.2]
-    x, y, zz = np.abs(surf[:, 0]), np.abs(surf[:, 1]), np.abs(surf[:, 2])
-    dist = np.abs(np.minimum(np.minimum(3.0 - x, 2.0 - y), 3.0 - zz))
-    near_ht = surf[:, 0] > 2.95
-    p_ht, p_lt = surf[near_ht, 4].mean(), surf[surf[:, 0] < 2.9, 4].mean()
+    surf, dist, near_ht, p_ht, p_lt = _walls(rows)
     print(
         f"surface voxels {len(surf)}: distance to the room's walls median "
         f"{np.median(dist):.4f} m, p99 {np.quantile(dist, 0.99):.4f} m; "
@@ -534,6 +582,342 @@ def phase_readers_device_vs_cpu(dev, card):
         raise AssertionError(f"raycast card vs CPU: normal {n_err}, rgba {c_err}")
 
 
+def probe_decoders():
+    """Phase 1: the JPEG decoders this machine has, and two Python
+    packages the port could have used and does not."""
+    import importlib.util
+
+    from ra_slam_tpu_torch.io import jpeg
+
+    found = jpeg.probe()
+    specs = {name: importlib.util.find_spec(name) is not None for name in ("torchvision", "msgpack")}
+    print(f"JPEG decoder probe: {json.dumps(found)}; importable: {json.dumps(specs)}")
+    return found
+
+
+def phase_fusion_device_vs_cpu(dev, card):
+    """2b: the main path's configuration (VGA, 1 cm voxels, 2^17 blocks,
+    2^19 slots, 16384 visible / 32768 new blocks, stride 2) fused over the
+    orbit's first frames on the card and on the CPU: keys, the hash
+    table, the free stack and the stats exactly equal, the payload within
+    TOL."""
+    from ra_slam_tpu_torch.core.se3 import SE3
+    from ra_slam_tpu_torch.map import voxel_map as vm
+    from ra_slam_tpu_torch.pipeline import offline_eval
+    from ra_slam_tpu_torch.utils.convert import voxel_map_to_numpy
+
+    args = offline_eval.build_parser().parse_args(["--synthetic"])
+    ds = offline_eval.load_dataset(args)
+    cfg = offline_eval.system_config(ds.camera, args).tsdf
+    maps = {"cpu": vm.create_map(cfg, "cpu"), "cuda": vm.create_map(cfg, dev)}
+    secs = {"cpu": 0.0, "cuda": 0.0}
+    for i in range(DEV_VS_CPU_FRAMES):
+        f = ds.frame(i)
+        stats = {}
+        for name, m in maps.items():
+            t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=m.device)
+            t0 = time.perf_counter()
+            _, st = vm.integrate_frame(m, t(f.rgb), t(f.depth), t(f.ht), t(f.lt), ds.camera,
+                                       SE3.from_matrix(t(f.cam_T_world)), cfg, alloc_stride=2)
+            stats[name] = {k: int(v) for k, v in st.items()}
+            secs[name] += time.perf_counter() - t0
+        if stats["cpu"] != stats["cuda"]:
+            raise AssertionError(f"fusion card vs CPU: frame {i} stats {stats}")
+    c, g = voxel_map_to_numpy(maps["cpu"]), voxel_map_to_numpy(maps["cuda"])
+    differ = {name: int((getattr(c, name) != getattr(g, name)).sum())
+              for name in ("block_key", "block_slot", "active", "free_stack", "free_top", "alloc_failures")}
+    differ["table.key"] = int((c.table.key != g.table.key).sum())
+    differ["table.value"] = int((c.table.value != g.table.value).sum())
+    err = {name: float(np.abs(getattr(c, name) - getattr(g, name)).max()) for name in ("tsdf", "weight", "prob", "rgb")}
+    print(
+        f"fusion card vs CPU at the main path's configuration ({DEV_VS_CPU_FRAMES} VGA frames, "
+        f"{int(c.active.sum())} active blocks, last frame {stats['cpu']}): entries that differ "
+        f"{json.dumps(differ)}; payload max |diff| {json.dumps(err)} (bounds {json.dumps(TOL)}); "
+        f"CPU {secs['cpu']:.2f} s, card {secs['cuda']:.2f} s; {card}"
+    )
+    if any(differ.values()):
+        raise AssertionError(f"fusion card vs CPU: map entries differ {differ}")
+    for name, e in err.items():
+        if not e <= TOL[name]:
+            raise AssertionError(f"fusion card vs CPU: {name} differs by {e} > {TOL[name]}")
+
+
+class _Timed:
+    """While entered, wraps `owner.<name>` so that every call is timed:
+    CUDA events (`cuda=True`, read after a sync) or the host clock."""
+
+    def __init__(self, owner, name, cuda):
+        self.owner, self.name, self.cuda, self.records = owner, name, cuda, []
+
+    def __enter__(self):
+        self.saved = getattr(self.owner, self.name)
+        saved, records, cuda = self.saved, self.records, self.cuda
+
+        def timed(*args, **kwargs):
+            if cuda:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = saved(*args, **kwargs)
+                end.record()
+                records.append((start, end))
+            else:
+                t0 = time.perf_counter()
+                out = saved(*args, **kwargs)
+                records.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.saved)
+
+    def ms(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [s.elapsed_time(e) for s, e in self.records]
+        return list(self.records)
+
+
+def _check_recorded(r, rows, n, launches, name):
+    surf, dist, _, _, _ = _walls(rows)
+    if r["frames"] != n or launches < n:
+        raise AssertionError(f"{name}: fused {r['frames']} of {n} frames, {launches} fuse launches")
+    if r["alloc_failures"] != 0 or len(rows) != r["tsdf_rows"]:
+        raise AssertionError(f"{name}: {r}")
+    if not (np.median(dist) <= 0.015 and np.quantile(dist, 0.99) <= 0.05):
+        raise AssertionError(f"{name}: the fused surface is not on the room's walls")
+    return float(np.median(dist)), float(np.quantile(dist, 0.99))
+
+
+def phase_recorded_folder(dev, card):
+    """3d: the recorded-data main path: 60 VGA orbit frames logged by the
+    port's folder writer without maps, segmented by the default-width
+    UNet from a checkpoint the port saves, fused on the card by
+    `offline_eval --folder --model`."""
+    from ra_slam_tpu_torch.io import folder as folder_io
+    from ra_slam_tpu_torch.models import segmentation as seg
+    from ra_slam_tpu_torch.ops import tsdf_fuse
+    from ra_slam_tpu_torch.pipeline import offline_eval
+
+    ds = offline_eval.load_dataset(offline_eval.build_parser().parse_args(["--synthetic"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, ckpt, out = (os.path.join(tmp, n) for n in ("rec", "seg.msgpack", "out"))
+        t0 = time.perf_counter()
+        folder_io.write_folder_dataset(
+            rec, [dataclasses.replace(ds.frame(i), ht=None, lt=None) for i in range(MAIN_FRAMES)], ds.camera)
+        write_s = time.perf_counter() - t0
+        seg.InferenceEngine("__random__", 640, 480, device=dev).save(ckpt)
+        torch.cuda.reset_peak_memory_stats()
+        with _Timed(seg.InferenceEngine, "forward", True) as fwd, \
+                _Timed(seg.InferenceEngine, "segment", True) as segm, \
+                _Timed(folder_io, "read_png", False) as png_read:
+            tsdf_fuse.LAUNCHES = 0
+            r = offline_eval.main(["--folder", rec, "--model", ckpt, "--max-frames", str(MAIN_FRAMES),
+                                   "--download", out])
+            launches = tsdf_fuse.LAUNCHES
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        rows = np.fromfile(os.path.join(out, "tsdf.bin"), "<f4").reshape(-1, 5)
+        engine = seg.InferenceEngine(ckpt, 640, 480, device=dev)
+        rgb = ds.frame(0).rgb
+        engine.infer_one(rgb)
+        infer_ms = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            engine.infer_one(rgb)
+            infer_ms.append((time.perf_counter() - t0) * 1e3)
+    med, p99 = _check_recorded(r, rows, MAIN_FRAMES, launches, "recorded folder path")
+    fwd_ms, seg_ms, png_ms = fwd.ms()[1:], segm.ms()[1:], png_read.ms()
+    # the first read is the reader's size probe, then depth and colour per frame
+    depth_ms, rgb_ms = png_ms[1::2], png_ms[2::2]
+    if len(fwd_ms) != MAIN_FRAMES - 1:
+        raise AssertionError(f"the UNet ran {len(fwd_ms) + 1} times for {MAIN_FRAMES} frames")
+    print(
+        f"recorded folder path (offline_eval --folder --model, default-width UNet, random weights): "
+        f"{r['frames']} VGA frames, {r['fps']} fused frames/s end to end (PNG decode and segmentation "
+        f"included), {r['frames'] / r['integrate_s']:.2f} frames/s inside feed_rgbd_frame; UNet per frame "
+        f"(CUDA events, median of frames 1..{MAIN_FRAMES - 1}): forward {float(np.median(fwd_ms)):.3f} ms, "
+        f"segment (pad, forward, softmax, crop) {float(np.median(seg_ms)):.3f} ms; infer_one with its host "
+        f"round trip (host clock, median of 20) {float(np.median(infer_ms)):.3f} ms; PNG decode per frame "
+        f"{float(np.median(np.add(rgb_ms, depth_ms))):.2f} ms (VGA RGB {float(np.median(rgb_ms)):.2f} ms, "
+        f"16-bit depth {float(np.median(depth_ms)):.2f} ms, median); writing the folder {write_s:.2f} s; "
+        f"{launches} fuse launches, alloc_failures {r['alloc_failures']}, {r['tsdf_rows']} voxels dumped, "
+        f"wall distance median {med:.5f} m, p99 {p99:.5f} m, prob in [0, 1]; peak device memory "
+        f"{peak_gb:.2f} GiB; {card}"
+    )
+    return launches
+
+
+def _scannet_like_sens(path, ds, n):
+    """A .sens of the orbit's first `n` frames as ScanNet lays one out:
+    PNG colour at 1296x968 (the orbit rendered at that size), 16-bit
+    depth in mm at 640x480, the depth camera's intrinsics."""
+    from ra_slam_tpu_torch.io.sens import write_sens
+    from ra_slam_tpu_torch.io.synthetic import SyntheticCameraSpec, render_box_room
+
+    cw, ch = SCANNET_COLOR
+    sx, sy = cw / ds.spec.width, ch / ds.spec.height
+    spec = ds.spec
+    big = SyntheticCameraSpec(fx=spec.fx * sx, fy=spec.fy * sy, cx=(spec.cx + 0.5) * sx - 0.5,
+                              cy=(spec.cy + 0.5) * sy - 0.5, width=cw, height=ch)
+    rgbs, depths, c2w = [], [], []
+    for i in range(n):
+        f = ds.frame(i)
+        rgbs.append(render_box_room(big, ds.world_T_cam(i), ds.half_extents)[0])
+        depths.append(np.clip(f.depth * 1000.0, 0, 65535).astype(np.uint16))
+        c2w.append(np.linalg.inv(np.asarray(f.cam_T_world, np.float64)).astype(np.float32))
+    k = np.array([[spec.fx, 0, spec.cx], [0, spec.fy, spec.cy], [0, 0, 1]], np.float32)
+    write_sens(path, rgbs, depths, c2w, k, depth_shift=1000.0)
+
+
+def phase_recorded_sens(dev, card, decoders):
+    """3e: `offline_eval --sens` over a ScanNet-shaped file the port
+    writes (colour resized to the depth size on read); then, with nvjpeg,
+    the JPEG fixture against cv2's pixels."""
+    from ra_slam_tpu_torch.io import sens as sens_io
+    from ra_slam_tpu_torch.ops import tsdf_fuse
+    from ra_slam_tpu_torch.pipeline import offline_eval
+
+    ds = offline_eval.load_dataset(offline_eval.build_parser().parse_args(["--synthetic"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path, out = os.path.join(tmp, "scene.sens"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        _scannet_like_sens(path, ds, SENS_FRAMES)
+        write_s = time.perf_counter() - t0
+        with _Timed(sens_io.SensReader, "frame", False) as read:
+            tsdf_fuse.LAUNCHES = 0
+            r = offline_eval.main(["--sens", path, "--max-frames", str(SENS_FRAMES), "--download", out])
+            launches = tsdf_fuse.LAUNCHES
+        rows = np.fromfile(os.path.join(out, "tsdf.bin"), "<f4").reshape(-1, 5)
+        size_mb = os.path.getsize(path) / 1e6
+    med, p99 = _check_recorded(r, rows, SENS_FRAMES, launches, ".sens path")
+    print(
+        f".sens path (offline_eval --sens, PNG colour {SCANNET_COLOR[0]}x{SCANNET_COLOR[1]} resized to 640x480, "
+        f"zlib depth, fake maps): {r['frames']} frames, {r['fps']} fused frames/s end to end, "
+        f"{r['frames'] / r['integrate_s']:.2f} frames/s inside feed_rgbd_frame; SensReader.frame (PNG "
+        f"decode, inflate, colour resize on the CPU) median {float(np.median(read.ms())):.1f} ms; file "
+        f"{size_mb:.1f} MB written in {write_s:.2f} s; {launches} fuse launches, wall distance median "
+        f"{med:.5f} m, p99 {p99:.5f} m; {card}"
+    )
+    if decoders.get("nvjpeg") or decoders.get("nvjpeg (CUDA toolkit)"):
+        from ra_slam_tpu_torch.io import jpeg
+
+        reader = sens_io.SensReader(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                 "tests", "data", "jpeg_64x48.sens"))
+        want = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                                    "jpeg_64x48_rgb.npy")).astype(np.int32)
+        got = np.stack([reader.frame(i).rgb for i in range(len(reader))]).astype(np.int32)
+        reader.close()
+        d = np.abs(got - want)
+        per_frame = [(int(x.max()), round(float(x.mean()), 3)) for x in d]
+        print(f"JPEG fixture through {jpeg.decoder_name()} against cv2's pixels: {got.shape}, max |diff| "
+              f"{int(d.max())} levels, mean {float(d.mean()):.3f} (per frame (max, mean): {per_frame}), "
+              f"{float((d > 0).mean()):.4f} of the values differ (bounds {JPEG_MAX_TOL} / {JPEG_MEAN_TOL}); {card}")
+        if got.shape != want.shape or d.max() > JPEG_MAX_TOL or d.mean() > JPEG_MEAN_TOL:
+            raise AssertionError("nvjpeg against cv2 on the JPEG fixture outside the bounds")
+    return launches
+
+
+def _seg_card_vs_cpu(dev, model, widths, rgbs):
+    """(prob max |diff|, flipped share, share of pixels within
+    SEG_PROB_TOL of 0.5 on the CPU, flips outside that band) of the ht
+    maps of `rgbs` on the card against the CPU, the same weights."""
+    from ra_slam_tpu_torch.models.segmentation import InferenceEngine
+
+    h, w = rgbs[0].shape[:2]
+    engines = {d: InferenceEngine(model, w, h, widths=widths, device=d) for d in ("cpu", dev)}
+    c, g = (np.stack([engines[d].segment(torch.as_tensor(x))[0].cpu().numpy() for x in rgbs]) for d in ("cpu", dev))
+    flipped = (c > 0.5) != (g > 0.5)
+    band = np.abs(c - 0.5) <= SEG_PROB_TOL
+    return float(np.abs(c - g).max()), float(flipped.mean()), float(band.mean()), int((flipped & ~band).sum())
+
+
+def phase_unet_resize_device_vs_cpu(dev, card):
+    """3f: the UNet on the card against the CPU, TF32 off: the
+    default-width net (random weights) on one VGA frame, and the trained
+    (16, 32, 64) weights on two held-out 320x240 frames (the set the
+    CPU-vs-JAX bounds were measured on); the resizes on the card against
+    the CPU, exactly."""
+    from ra_slam_tpu_torch.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
+    from ra_slam_tpu_torch.ops.resize import resize
+    from ra_slam_tpu_torch.pipeline import offline_eval
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ds = offline_eval.load_dataset(offline_eval.build_parser().parse_args(["--synthetic"]))
+    dp, flips, band, out_of_band = _seg_card_vs_cpu(dev, "__random__", (32, 64, 128, 256), [ds.frame(0).rgb])
+    held = SyntheticBoxDataset(num_frames=16, cam=SyntheticCameraSpec(fx=160.0, fy=160.0, cx=159.5, cy=119.5,
+                                                                       width=320, height=240),
+                               radius=1.0, seed=3, clutter=4)
+    tp, tflips, tband, t_out = _seg_card_vs_cpu(dev, os.path.join(here, "ra_slam_tpu", "models", "demo_seg.msgpack"),
+                                                (16, 32, 64), [held.frame(i).rgb for i in (0, 1)])
+    rng = np.random.default_rng(0)
+    cases = {
+        "uint8 RGB 1296x968 -> 640x480 linear": (rng.integers(0, 256, (968, 1296, 3), dtype=np.uint8), 640, 480, "linear"),
+        "uint8 RGB 320x240 -> 640x480 linear": (rng.integers(0, 256, (240, 320, 3), dtype=np.uint8), 640, 480, "linear"),
+        "float32 50x35 -> 640x480 linear": (rng.random((35, 50)).astype(np.float32), 640, 480, "linear"),
+        "depth 1296x968 -> 640x480 nearest": (rng.random((968, 1296)).astype(np.float32), 640, 480, "nearest"),
+    }
+    same = {}
+    for name, (img, w, h, how) in cases.items():
+        a = resize(torch.as_tensor(img), w, h, how)
+        b = resize(torch.as_tensor(img, device=dev), w, h, how).cpu()
+        same[name] = bool(torch.equal(a, b))
+    print(
+        f"UNet card vs CPU (bf16, TF32 off): default widths, random weights seed 0, one VGA frame: ht prob "
+        f"max |diff| {dp:.5f} (bound {SEG_PROB_TOL}), flipped prob > 0.5 decisions {flips:.6f} of the pixels, "
+        f"all where the CPU's prob is within {SEG_PROB_TOL} of 0.5 ({band:.6f} of the pixels; {out_of_band} "
+        f"flips outside); trained (16, 32, 64) weights, two held-out 320x240 frames: prob max |diff| {tp:.5f}, "
+        f"flipped {tflips:.6f} (bound {SEG_FLIP_SHARE}), {t_out} outside the band; resize card == CPU: "
+        f"{json.dumps(same)}; {card}"
+    )
+    if not (dp <= SEG_PROB_TOL and out_of_band == 0 and tp <= SEG_PROB_TOL and tflips <= SEG_FLIP_SHARE
+            and t_out == 0):
+        raise AssertionError("UNet card vs CPU outside the bounds")
+    if not all(same.values()):
+        raise AssertionError(f"resize card vs CPU differ: {same}")
+
+
+def phase_seg_latency(dev, card):
+    """3g: the latency CLI at VGA, default widths, and the forward alone
+    against its bound (the convolutions' operations over the bf16 dense
+    peak)."""
+    from ra_slam_tpu_torch.models import segmentation as seg
+
+    r = seg._bench(["--iters", str(SEG_ITERS), "--device", "cuda"])
+    eng = seg.InferenceEngine("__random__", 640, 480, device=dev)
+    x = torch.rand((1, 3, 480, 640), generator=torch.Generator().manual_seed(0)).to(dev)
+    ms = _median_ms(lambda: eng.forward(x))
+    dev_ms, _, _ = _device_ms(lambda: eng.forward(x))
+    flops = seg.forward_flops(seg.DEFAULT_WIDTHS, 480, 640)
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    print(
+        f"segmentation latency CLI (--iters {SEG_ITERS}, VGA, default widths): {r['value']} ms per infer_one "
+        f"({r['fps']} f/s, host round trip included), backend {r['backend']}; the forward alone, each call "
+        f"after a {L2_FLUSH_BYTES >> 20} MiB L2 flush: {ms:.3f} ms per call (median of {REPEATS}, CUDA "
+        f"events), device time {dev_ms:.3f} ms (torch.profiler, mean); {flops / 1e9:.1f} GFLOP per forward, "
+        f"bound {bound_ms:.4f} ms (operations, bf16 dense peak), share of the bound {bound_ms / dev_ms:.3f} "
+        f"(device time), {bound_ms / ms:.3f} (per call); {card}"
+    )
+
+
+def phase_rescore(card):
+    """3h: scripts/score_torch_semantic.py on the card and on this
+    machine's CPU, beside SEMANTIC_r05.json's JAX-on-TPU numbers."""
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "score_torch_semantic", os.path.join(here, "scripts", "score_torch_semantic.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    gpu, cpu = mod.score("cuda"), mod.score("cpu")
+    print(f"re-score of demo_seg.msgpack through the port: card {json.dumps(gpu)}; CPU {json.dumps(cpu)}; "
+          f"SEMANTIC_r05.json (the JAX package on a TPU) {json.dumps(SEMANTIC_R05)}; {card}")
+    for key in ("iou_2d_high_touch", "iou_2d_low_touch", "voxel_iou_high_touch"):
+        if not abs(gpu[key] - cpu[key]) <= RESCORE_TOL:
+            raise AssertionError(f"re-score {key}: card {gpu[key]}, CPU {cpu[key]}")
+
+
 def phase_hamming_vs_plain(dev, card):
     from ra_slam_tpu_torch.core.se3 import SE3
     from ra_slam_tpu_torch.eval.trajectory_bench import tracking_setup
@@ -652,44 +1036,10 @@ def phase_tracking_path(card):
     return launches, r["ate_rmse_m"]
 
 
-class _CloseTimer:
-    """CUDA events around the close branch's stages: the names the frame
-    step calls in `ra_slam_tpu_torch.slam.system` are wrapped while the
-    timer is entered, and restored after."""
-
-    STAGES = {"optimize_pose_graph": "PGO", "correct_landmarks": "landmark correction",
-              "global_bundle_adjustment": "global BA"}
-
-    def __init__(self, module):
-        self.module, self.events = module, {name: [] for name in self.STAGES}
-
-    def _wrap(self, name, fn):
-        def timed(*args, **kwargs):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            self.events[name].append((start, end))
-            return out
-        return timed
-
-    def __enter__(self):
-        self.saved = {name: getattr(self.module, name) for name in self.STAGES}
-        for name, fn in self.saved.items():
-            setattr(self.module, name, self._wrap(name, fn))
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(self.module, name, fn)
-
-    def summary(self) -> str:
-        torch.cuda.synchronize()
-        parts = []
-        for name, label in self.STAGES.items():
-            ms = [s.elapsed_time(e) for s, e in self.events[name]]
-            parts.append(f"{label} " + (", ".join(f"{t:.2f}" for t in ms) or "none") + " ms")
-        return "; ".join(parts)
+# the close branch's stages, by the names the frame step calls in
+# `ra_slam_tpu_torch.slam.system`
+CLOSE_STAGES = {"optimize_pose_graph": "PGO", "correct_landmarks": "landmark correction",
+                "global_bundle_adjustment": "global BA"}
 
 
 def phase_loop_tracking(card, ate_loop_off):
@@ -699,11 +1049,15 @@ def phase_loop_tracking(card, ate_loop_off):
 
     torch.cuda.reset_peak_memory_stats()
     hamming.LAUNCHES = 0
-    with _CloseTimer(slam_system) as timer:
+    with ExitStack() as stack:
+        timers = {label: stack.enter_context(_Timed(slam_system, name, True))
+                  for name, label in CLOSE_STAGES.items()}
         r, slam = trajectory_bench.main(
             ["--width", "640", "--height", "480", "--frames", str(TRACK_FRAMES)], return_system=True,
         )
     launches = hamming.LAUNCHES
+    close_ms = "; ".join(f"{label} " + (", ".join(f"{t:.2f}" for t in timer.ms()) or "none") + " ms"
+                         for label, timer in timers.items())
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(
         f"tracking path (loop closing on): {r['total_frames']} frames at 640x480, ATE {r['ate_rmse_m']} m "
@@ -713,7 +1067,7 @@ def phase_loop_tracking(card, ate_loop_off):
         f"{r['slam_fps']} with frame 0), {r['host_syncs_per_frame']} host syncs/frame, {launches} Hamming "
         f"launches, peak device memory {peak_gb:.2f} GiB; {card}"
     )
-    print(f"close branch per closure (CUDA events): {timer.summary()}; {card}")
+    print(f"close branch per closure (CUDA events): {close_ms}; {card}")
     if r["lost_frames"] != 0 or r["matched_frames"] != TRACK_FRAMES:
         raise AssertionError(f"loop-on tracking lost frames: {r}")
     if r["loop_closures"] < 1 or r["relocalizations"] > 2:
@@ -886,12 +1240,19 @@ def main():
         print(f"{name} build: {built}")
         print((_build.library_dir(name) / "build.log").read_text().strip())
     print(f"builds done in {time.perf_counter() - t0:.2f} s (in parallel)")
+    decoders = probe_decoders()
 
     numbers = phase_kernel_vs_plain(dev, card)
+    phase_fusion_device_vs_cpu(dev, card)
     launches, system = phase_main_path(card)
     phase_raycast(system, card)
     del system
     phase_readers_device_vs_cpu(dev, card)
+    launches += phase_recorded_folder(dev, card)
+    launches += phase_recorded_sens(dev, card, decoders)
+    phase_unet_resize_device_vs_cpu(dev, card)
+    phase_seg_latency(dev, card)
+    phase_rescore(card)
     ham_numbers = phase_hamming_vs_plain(dev, card)
     ham_launches, ate_loop_off = phase_tracking_path(card)
     loop_launches, slam = phase_loop_tracking(card, ate_loop_off)

@@ -1,10 +1,13 @@
 """Offline reconstruction entry point (counterpart of
 `ra_slam_tpu/pipeline/offline_eval.py`).
 
-Replays a dataset, segments each frame (fake mode), and fuses it into
-the semantic TSDF on `--device`: at its ground-truth pose, or with
-`--use-slam` at the pose the SLAM system tracks (frames it loses are not
-fused; the SLAM world is the first camera's frame). With `--download`
+Replays a dataset (`--sens` a ScanNet `.sens` file, `--folder` a logged
+folder, `--synthetic` the box-room orbit), segments each frame that has
+no maps (`--model` a flax msgpack checkpoint; without one, fake
+all-ones maps), and fuses it into the semantic TSDF on `--device`: at
+its ground-truth pose, or with `--use-slam` at the pose the SLAM system
+tracks (frames it loses are not fused; the SLAM world is the first
+camera's frame). With `--download`
 it dumps the semantic voxels as `tsdf.bin` (packed (x, y, z, tsdf, prob)
 float32 rows, the reference's metric input) and the mesh as
 `mesh_vertices.bin`, `mesh_indices.bin` and `mesh_vertices_prob.bin`;
@@ -16,9 +19,11 @@ result keys, ATE/RPE of the tracked trajectory included.
     python -m ra_slam_tpu_torch.pipeline.offline_eval --synthetic \\
         --max-frames 60 --download out/ [--use-slam] [--render-every 10] \\
         [--eval-gt scene_vh_clean_2.labels.ply]
+    python -m ra_slam_tpu_torch.pipeline.offline_eval --folder capture/ \\
+        --model seg.msgpack --download out/
 
-The `.sens` and folder readers (they need cv2 and yaml) and the
-segmentation model are not ported yet; those flags raise.
+`--native-io` (the JAX package's C++ `.sens` decoder and prefetcher) is
+not ported and raises.
 """
 
 from __future__ import annotations
@@ -35,12 +40,12 @@ import torch
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument("--sens", help=".sens sequence path (not ported yet)")
-    src.add_argument("--folder", help="logged folder dataset path (not ported yet)")
+    src.add_argument("--sens", help=".sens sequence path")
+    src.add_argument("--folder", help="logged folder dataset path")
     src.add_argument("--synthetic", action="store_true",
                      help="synthetic box-room orbit")
     p.add_argument("--model", default=None,
-                   help="segmentation checkpoint (not ported yet; absent -> fake maps)")
+                   help="segmentation checkpoint, flax msgpack (absent -> fake all-ones maps)")
     p.add_argument("--use-slam", action="store_true",
                    help="track with the SLAM system instead of the ground-truth poses")
     p.add_argument("--download", default=None,
@@ -56,17 +61,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dump a raycast PNG every N frames into --download")
     p.add_argument("--trajectory-out", default=None,
                    help="save the (SLAM) trajectory in id + 3x4 format")
+    p.add_argument("--native-io", action="store_true",
+                   help="the C++ .sens decoder + threaded prefetcher (not ported; raises)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the map (cuda runs the CUDA fuse kernel)")
     return p
 
 
 def load_dataset(args):
-    if args.sens or args.folder:
+    if args.native_io:
         raise NotImplementedError(
-            "--sens/--folder: the .sens and folder readers are not ported yet; "
-            "use --synthetic (or ra_slam_tpu.pipeline.offline_eval)"
+            "--native-io (C++ .sens decoder and prefetcher) is not ported yet: ROADMAP queue 1, "
+            "item 6b; drop the flag to read the .sens file with ra_slam_tpu_torch.io.sens"
         )
+    if args.sens:
+        from ra_slam_tpu_torch.io.sens import SensReader
+
+        return SensReader(args.sens)
+    if args.folder:
+        from ra_slam_tpu_torch.io.folder import FolderReader
+
+        return FolderReader(args.folder)
     from ra_slam_tpu_torch.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
 
     spec = SyntheticCameraSpec(
@@ -133,7 +148,8 @@ def main(argv=None) -> dict:
                 raise ValueError(f"frame {i} has no ground-truth pose")
             pose = SE3.from_matrix(torch.as_tensor(fr.cam_T_world))
         ts = time.perf_counter()
-        sys_.feed_rgbd_frame(fr.rgb, fr.depth, fr.timestamp, pose=pose, ht=fr.ht, lt=fr.lt)
+        ht, lt = (fr.ht, fr.lt) if fr.ht is not None else (None, None)
+        sys_.feed_rgbd_frame(fr.rgb, fr.depth, fr.timestamp, pose=pose, ht=ht, lt=lt)
         t_int += time.perf_counter() - ts
 
         if args.render_every and args.download and i % args.render_every == 0:

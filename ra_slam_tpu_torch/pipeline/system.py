@@ -16,7 +16,11 @@ robot-facing API:
     download_all_mesh()    — reference-format mesh dump (`map/meshing.py`)
     semantic_voxels()      — the same rows as an array
 
-Resizing a frame to the map's feed size is not ported yet (ROADMAP).
+A frame of another size than the map's feed size is resized on the
+device as the JAX facade does with cv2: colour INTER_LINEAR, depth
+INTER_NEAREST (`ops/resize.py`); caller-given ht/lt maps are not
+resized. Frames without maps are segmented on the device by the
+engine (`models/segmentation.py`).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from ra_slam_tpu_torch.map.voxel_map import (
     query_tsdf,
 )
 from ra_slam_tpu_torch.models.segmentation import InferenceEngine
+from ra_slam_tpu_torch.ops.resize import resize_linear, resize_nearest
 from ra_slam_tpu_torch.slam.system import SlamSystem
 
 
@@ -78,7 +83,8 @@ class RaSlamSystem:
         if cfg.extrinsics is not None:
             m = torch.as_tensor(np.array(cfg.extrinsics, np.float32).reshape(4, 4))
             self.extrinsics = SE3.from_matrix(m.to(self.device))
-        self.seg = InferenceEngine(segmentation_model, width=tsdf.width, height=tsdf.height)
+        self.seg = InferenceEngine(segmentation_model, width=tsdf.width, height=tsdf.height,
+                                   device=self.device)
         self.map = create_map(tsdf, self.device)
 
         self.slam: Optional[SlamSystem] = None
@@ -150,18 +156,21 @@ class RaSlamSystem:
             pose = SE3(pose.R.to(self.device, torch.float32), pose.t.to(self.device, torch.float32))
             if self.extrinsics is not None:
                 pose = self.extrinsics @ pose
-        if rgb.shape[:2] != (tsdf.height, tsdf.width) or depth.shape != (tsdf.height, tsdf.width):
-            raise ValueError(
-                f"frame is {tuple(depth.shape)}, the map is fed "
-                f"{(tsdf.height, tsdf.width)}; resizing is not ported yet"
-            )
+        rgb = np.asarray(rgb)
+        rgb_t = torch.as_tensor(rgb if rgb.dtype == np.uint8 else rgb.astype(np.float32)).to(self.device)
+        depth_t = self._tensor(depth)
+        if rgb_t.shape[:2] != (tsdf.height, tsdf.width):
+            rgb_t = resize_linear(rgb_t, tsdf.width, tsdf.height)
+        if depth_t.shape != (tsdf.height, tsdf.width):
+            depth_t = resize_nearest(depth_t, tsdf.width, tsdf.height)
         if ht is None or lt is None:
-            ht, lt = self.seg.infer_one(rgb)
+            ht_t, lt_t = self.seg.segment(rgb_t)
+        else:
+            ht_t, lt_t = self._tensor(ht), self._tensor(lt)
         pose = SE3(pose.R.to(self.device, torch.float32), pose.t.to(self.device, torch.float32))
         with self._lock:
             self.map, stats = integrate_frame(
-                self.map,
-                self._tensor(rgb), self._tensor(depth), self._tensor(ht), self._tensor(lt),
+                self.map, rgb_t.to(torch.float32), depth_t, ht_t, lt_t,
                 self.tsdf_cam, pose, tsdf, alloc_stride=self.alloc_stride,
             )
             self.num_integrated += 1

@@ -115,3 +115,84 @@ def slam_state_to_numpy(state: SlamState) -> SimpleNamespace:
     """The state as numpy arrays in the JAX `SlamState` layout, with the
     descriptor words as uint32."""
     return tree_to_numpy(state)
+
+
+def _seg_layout(net):
+    """(torch module prefix, flax path, kind) of every conv and group
+    norm of a `SegmentationNet`, in the flax module names: the encoder
+    blocks, the bottleneck and the decoder blocks are `ConvBlock_i` in
+    that order, the decoder's upsampling convs `Conv_k`, the logits conv
+    the last `Conv_k`."""
+    levels = len(net.widths)
+    blocks = [f"down.{i}" for i in range(levels - 1)] + ["bottom"] + [
+        f"up_blocks.{k}" for k in range(levels - 1)]
+    for b, prefix in enumerate(blocks):
+        for j in (0, 1):
+            yield f"{prefix}.convs.{j}", (f"ConvBlock_{b}", f"Conv_{j}"), "conv"
+            yield f"{prefix}.norms.{j}", (f"ConvBlock_{b}", f"GroupNorm_{j}"), "norm"
+    for k in range(levels - 1):
+        yield f"up.{k}", (f"Conv_{k}",), "conv"
+    yield "head", (f"Conv_{levels - 1}",), "conv"
+
+
+def seg_state_dict_from_flax(tree, net):
+    """The `state_dict` of `net` (a `SegmentationNet`) from a flax params
+    tree with numpy leaves (`{"params": {"ConvBlock_0": {"Conv_0":
+    {"kernel", "bias"}, "GroupNorm_0": {"scale", "bias"}, ...}, ...}}`):
+    kernels HWIO -> OIHW. Raises ValueError, as `flax.serialization.
+    from_bytes` does, where the tree lacks a module the net has, and
+    where a leaf's shape differs."""
+    expected: dict = {}
+    for _, path, _ in _seg_layout(net):
+        node = expected.setdefault("params", {})
+        for key in path:
+            node = node.setdefault(key, {})
+    _check_keys(tree, expected, "")
+    sd = {}
+    for prefix, path, kind in _seg_layout(net):
+        node = tree["params"]
+        for key in path:
+            node = node[key]
+        if kind == "conv":
+            leaves = {"weight": np.asarray(node["kernel"]).transpose(3, 2, 0, 1), "bias": node["bias"]}
+        else:
+            leaves = {"weight": node["scale"], "bias": node["bias"]}
+        for name, value in leaves.items():
+            sd[f"{prefix}.{name}"] = torch.from_numpy(np.array(value, np.float32, copy=True))
+    want = net.state_dict()
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(want[k].shape):
+            raise ValueError(f"checkpoint leaf for {k} has shape {tuple(v.shape)}, the net {tuple(want[k].shape)}")
+    return sd
+
+
+def _check_keys(tree, expected, path):
+    """Raise as flax's `_restore_dict` does at the first mapping of `tree`
+    that lacks keys `expected` has there."""
+    missing = set(expected) - set(tree) if isinstance(tree, dict) else set(expected)
+    if missing:
+        raise ValueError(
+            "The target dict keys and state dict keys do not match, target dict contains "
+            f"keys {missing} which are not present in state dict at path {path or '/'}")
+    for key, sub in expected.items():
+        if sub:
+            _check_keys(tree[key], sub, f"{path}/{key}")
+
+
+def seg_state_dict_to_flax(sd, net):
+    """The flax params tree (numpy float32 leaves, keys sorted as flax
+    writes them) of `net`'s `state_dict`: kernels OIHW -> HWIO."""
+    params: dict = {}
+    for prefix, path, kind in _seg_layout(net):
+        w, b = sd[f"{prefix}.weight"].detach().cpu().numpy(), sd[f"{prefix}.bias"].detach().cpu().numpy()
+        leaf = ({"bias": b, "kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0))} if kind == "conv"
+                else {"bias": b, "scale": w})
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+
+    def _sorted(d):
+        return {k: _sorted(d[k]) if isinstance(d[k], dict) else d[k] for k in sorted(d)}
+
+    return {"params": _sorted(params)}

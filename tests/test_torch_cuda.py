@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need the GPU: the CUDA fuse and
-Hamming kernels against their plain PyTorch versions, and the fusion
-path, raycast and meshing on the card against the same on the CPU. They
+Hamming kernels against their plain PyTorch versions, the fusion path,
+raycast, meshing, resizing and the UNet on the card against the same on
+the CPU, and nvjpeg against cv2's pixels on the JPEG fixture. They
 skip where torch sees no CUDA device. This file imports no JAX, so that it runs on a machine without
 it; tests/conftest.py does import JAX, so run it there as
 
@@ -216,3 +217,57 @@ def test_hamming_rejects_bad_inputs():
         hamming.hamming_matrix(a.to(torch.int64), a)
     with pytest.raises(ValueError):
         hamming.hamming_matrix(a[:, :7], a)
+
+
+@pytest.mark.cuda
+def test_resize_cuda_matches_cpu(cuda):
+    """ops/resize.py on the card against the CPU, exactly: integer sums
+    (uint8) and separate float32 operations, indices from the host."""
+    from ra_slam_tpu_torch.ops.resize import resize
+
+    rng = np.random.default_rng(0)
+    for img, w, h in [(rng.integers(0, 256, (968, 1296, 3), dtype=np.uint8), 640, 480),
+                      (rng.integers(0, 256, (120, 160, 3), dtype=np.uint8), 333, 250),
+                      (rng.random((35, 50)).astype(np.float32), 64, 48)]:
+        for how in ("linear", "nearest"):
+            a = resize(torch.as_tensor(img), w, h, how)
+            b = resize(torch.as_tensor(img, device=cuda), w, h, how)
+            assert b.device.type == "cuda" and torch.equal(a, b.cpu()), (img.shape, how)
+
+
+@pytest.mark.cuda
+def test_jpeg_fixture_decodes_through_nvjpeg(cuda):
+    """The JPEG `.sens` fixture's colour through nvjpeg against cv2's
+    pixels (chip_smoke.py's bounds: another IDCT and chroma upsampling)."""
+    import os
+
+    from ra_slam_tpu_torch.io.sens import SensReader
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    reader = SensReader(os.path.join(data, "jpeg_64x48.sens"))
+    got = np.stack([reader.frame(i).rgb for i in range(len(reader))]).astype(np.int32)
+    reader.close()
+    d = np.abs(got - np.load(os.path.join(data, "jpeg_64x48_rgb.npy")).astype(np.int32))
+    assert got.shape == (2, 48, 64, 3) and d.max() <= 96 and d.mean() <= 4.0
+
+
+@pytest.mark.cuda
+def test_unet_cuda_matches_cpu(cuda):
+    """The committed (16, 32, 64) weights on a held-out 320x240 frame on
+    the card and on the CPU (bf16, TF32 off): prob within 0.06, at most
+    1e-3 of the decisions flipped (tests/test_torch_segmentation.py's
+    CPU-vs-JAX bounds)."""
+    import os
+
+    from ra_slam_tpu_torch.models.segmentation import InferenceEngine
+
+    weights = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "ra_slam_tpu", "models", "demo_seg.msgpack")
+    ds = SyntheticBoxDataset(num_frames=16, cam=SyntheticCameraSpec(fx=160.0, fy=160.0, cx=159.5, cy=119.5,
+                                                                     width=320, height=240),
+                             radius=1.0, seed=3, clutter=4)
+    rgb = torch.as_tensor(ds.frame(0).rgb)
+    c, g = (InferenceEngine(weights, 320, 240, widths=(16, 32, 64), device=d).segment(rgb)[0].cpu().numpy()
+            for d in ("cpu", cuda))
+    assert np.abs(c - g).max() <= 0.06 and ((c > 0.5) != (g > 0.5)).mean() <= 1e-3
+    assert torch.backends.cudnn.allow_tf32  # the engine restores the flag it clears for its call

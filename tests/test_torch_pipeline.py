@@ -70,7 +70,7 @@ def test_synthetic_frames_match_jax():
 
 _GUARD = r"""
 import importlib, os, pkgutil, sys, tempfile
-for name in ("jax", "flax", "yaml", "cv2", "PIL"):
+for name in ("jax", "flax", "yaml", "cv2", "PIL", "msgpack"):
     sys.modules[name] = None  # any import of them raises ImportError
 import ra_slam_tpu_torch
 from ra_slam_tpu_torch.pipeline import offline_eval
@@ -80,6 +80,17 @@ r = offline_eval.main(["--synthetic", "--max-frames", "1", "--voxel-size", "0.05
                        "--download", out, "--render-every", "1"])
 assert r["frames"] == 1 and r["num_active"] > 0 and r["mesh_triangles"] > 0, r
 assert os.path.getsize(os.path.join(out, "render_00000.png")) > 0
+import dataclasses
+from ra_slam_tpu_torch.io.folder import write_folder_dataset
+from ra_slam_tpu_torch.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
+from ra_slam_tpu_torch.models.segmentation import InferenceEngine
+small = SyntheticBoxDataset(num_frames=120, cam=SyntheticCameraSpec(fx=48.0, fy=48.0, cx=47.5, cy=31.5,
+                                                                    width=96, height=64), radius=1.0)
+write_folder_dataset(os.path.join(out, "rec"), [dataclasses.replace(small.frame(0), ht=None, lt=None)], small.camera)
+InferenceEngine("__random__", 96, 64, device="cpu").save(os.path.join(out, "seg.msgpack"))
+r = offline_eval.main(["--folder", os.path.join(out, "rec"), "--model", os.path.join(out, "seg.msgpack"),
+                       "--voxel-size", "0.05", "--truncation", "0.3", "--log2-blocks", "13", "--device", "cpu"])
+assert r["frames"] == 1 and r["num_active"] > 0, r
 from ra_slam_tpu_torch.core.config import TrackingConfig
 from ra_slam_tpu_torch.eval import trajectory_bench
 for loop in (False, True):
@@ -120,12 +131,14 @@ print("GUARD_OK")
 
 def test_port_imports_without_jax_yaml_cv2():
     """Every module of the port imports; one CPU frame fuses at a given
-    pose and is meshed and rendered to PNG by the CLI; three are tracked
+    pose and is meshed and rendered to PNG by the CLI; one frame of a
+    logged folder the port writes is segmented by the default-width UNet
+    from a checkpoint the port saves and fused by the CLI; three are tracked
     with loop closing off and three with it on; the facade tracks one
     frame, fuses it at the tracked pose, renders and meshes it, and the
-    viewer renders its checkpoint: with jax, flax, yaml, cv2 and PIL
-    unavailable and no ra_slam_tpu module loaded (the machine with the
-    GPU has none of them)."""
+    viewer renders its checkpoint: with jax, flax, yaml, cv2, PIL and
+    msgpack unavailable and no ra_slam_tpu module loaded (the port needs
+    none of them on the machine with the GPU)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
         [sys.executable, "-c", _GUARD], cwd=REPO, env=env,
@@ -155,12 +168,6 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         port_cli.main(ARGS + ["--device", "cuda"])
-
-
-@pytest.mark.parametrize("flag", ["--sens", "--folder"])
-def test_unported_readers_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_cli.main([flag, str(tmp_path), "--device", "cpu"])
 
 
 def test_offline_eval_mesh_render_and_eval(tmp_path):
@@ -197,11 +204,6 @@ def test_offline_eval_mesh_render_and_eval(tmp_path):
 
     assert r["eval"] == JaxScannetEval(str(out / "tsdf.bin"), gt).summary()
     assert r["eval"]["recall"] > 0.5
-
-
-def test_model_flag_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_cli.main(ARGS + ["--model", "demo_seg.msgpack", "--device", "cpu"])
 
 
 def test_viewer_paths_match_jax():
