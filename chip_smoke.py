@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of the repository. Ten phases, two of the map
-readers (3b, 3c) and the recorded-data path (2b, 3d-3h), none of whose
-failures is caught:
+readers (3b, 3c), the recorded-data path (2b, 3d-3h), training (11) and
+the live robot path (12-15), none of whose failures is caught; each
+prints its wall time:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      the builds of the CUDA kernels from csrc/ (the fuse kernel and the
@@ -95,10 +96,33 @@ failures is caught:
      the first camera's frame into the room's) on the room's walls;
   9. stereo tracking: 6 rectified VGA pairs through
      `SlamSystem.feed_stereo_frame`, every frame tracked within 0.1 m;
+ 11. training: scripts/train_torch_semantic.py on the card from the
+     committed JAX init, 300 steps (first loss within 0.01 of 0.6504,
+     the last below 0.1), the weights re-scored by
+     scripts/score_torch_semantic.py --weights (2D high-touch and voxel
+     IoU above 0.9), and one float32 step (TF32 off) on the card and on
+     the CPU from the same parameters and batch, each gradient within
+     1e-2 of its tensor's largest |g|;
+ 12. dense stereo (features/stereo.py) at the ZED's 672x376, D = 64, on a
+     synthetic pair: card against CPU (valid equal where no out-of-range
+     cost reaches the decision, depth within 1e-6), coverage of the
+     columns >= 64 above 0.5, median relative error against the analytic
+     depth below 0.05; the time per call and peak memory;
+ 13. rectification (core/rectify.py) from a ZED-like calibration at VGA:
+     a uint8 pair remapped on the card equals the CPU's; time per pair;
+ 14. `live.run` with fake cameras on the card for 60 frames: rectified
+     672x376 pairs feed the tracking thread, the left image with its
+     dense stereo depth (io/cameras.py:ZedDepthCamera) the mapping
+     thread; both threads reach 60 frames, ATE <= 0.05 m, >= 30 frames
+     fused without allocation failure, a preview PNG decodes, both
+     kernels launched; f/s per thread and where each thread's time goes;
+ 15. `offline_eval --sens --native-io` over 3e's file (run inside 3e's
+     phase): the same tsdf.bin as 3e's run, byte for byte; f/s beside
+     3e's;
  10. a JSON line of the kernels' numbers (launches summed over every
-     path, 3d and 3e included; times, bound and library time at the main path's shapes: the
-     fuse kernel at frame 10, the Hamming kernel at the tracking shape),
-     then the result line.
+     path, 3d, 3e, 14 and 15 included; times, bound and library time at
+     the main path's shapes: the fuse kernel at frame 10, the Hamming
+     kernel at the tracking shape), then the result line.
 
 It exits non-zero, printing no result, when torch sees no CUDA device
 or when the package is not beside it.
@@ -140,6 +164,22 @@ SEG_PROB_TOL, SEG_FLIP_SHARE = 0.06, 1e-3
 # 3.11, at the fixture's block of noise)
 JPEG_MAX_TOL, JPEG_MEAN_TOL = 96, 4.0
 RESCORE_TOL = 0.005  # the re-scored IoUs, card against the CPU
+# phase 11: the card-trained weights against SEMANTIC_r05.json (loss
+# 0.6504 -> 0.0352 on a TPU; IoUs 0.9695 / 0.9899 / 0.9754)
+TRAIN_FIRST_TOL, TRAIN_LAST_BOUND, TRAIN_IOU_BOUND = 0.01, 0.1, 0.9
+# one float32 training step, card vs CPU (TF32 off): the largest gradient
+# difference over the tensor's largest |g|; sums of ~3e5 float32 terms in
+# other orders, the conv biases' mostly cancelling
+TRAIN_GRAD_TOL = 1e-2
+# phases 12-14: the ZED's VGA eye size and a rectified focal length like
+# the ZED-like calibration's (350.12 px)
+ZED_VGA, ZED_FX = (672, 376), 350.0
+DENSE_D = 64  # io/cameras.py's max_disparity
+# dense stereo card vs CPU: `valid` may differ only where a sentinel cost
+# (1e9, summed in another order) reaches the decision, left of column
+# 2 D + 8; depth is the same float32 division where both are valid
+DENSE_EDGE_SHARE, DENSE_DEPTH_TOL = 0.02, 1e-6
+LIVE_FRAMES, LIVE_MIN_FUSED = 60, 30  # phase 14
 # SEMANTIC_r05.json: the JAX package on one TPU v5e (accuracy, not speed)
 SEMANTIC_R05 = {"iou_2d_high_touch": 0.9695, "iou_2d_low_touch": 0.9899,
                 "voxel_iou_high_touch": 0.9754, "mutual_surface_voxels": 225941}
@@ -772,8 +812,9 @@ def _scannet_like_sens(path, ds, n):
 
 def phase_recorded_sens(dev, card, decoders):
     """3e: `offline_eval --sens` over a ScanNet-shaped file the port
-    writes (colour resized to the depth size on read); then, with nvjpeg,
-    the JPEG fixture against cv2's pixels."""
+    writes (colour resized to the depth size on read), then phase 15
+    (`--native-io`) over the same file; then, with nvjpeg, the JPEG
+    fixture against cv2's pixels. Returns the two runs' fuse launches."""
     from ra_slam_tpu_torch.io import sens as sens_io
     from ra_slam_tpu_torch.ops import tsdf_fuse
     from ra_slam_tpu_torch.pipeline import offline_eval
@@ -790,15 +831,18 @@ def phase_recorded_sens(dev, card, decoders):
             launches = tsdf_fuse.LAUNCHES
         rows = np.fromfile(os.path.join(out, "tsdf.bin"), "<f4").reshape(-1, 5)
         size_mb = os.path.getsize(path) / 1e6
-    med, p99 = _check_recorded(r, rows, SENS_FRAMES, launches, ".sens path")
-    print(
-        f".sens path (offline_eval --sens, PNG colour {SCANNET_COLOR[0]}x{SCANNET_COLOR[1]} resized to 640x480, "
-        f"zlib depth, fake maps): {r['frames']} frames, {r['fps']} fused frames/s end to end, "
-        f"{r['frames'] / r['integrate_s']:.2f} frames/s inside feed_rgbd_frame; SensReader.frame (PNG "
-        f"decode, inflate, colour resize on the CPU) median {float(np.median(read.ms())):.1f} ms; file "
-        f"{size_mb:.1f} MB written in {write_s:.2f} s; {launches} fuse launches, wall distance median "
-        f"{med:.5f} m, p99 {p99:.5f} m; {card}"
-    )
+        med, p99 = _check_recorded(r, rows, SENS_FRAMES, launches, ".sens path")
+        print(
+            f".sens path (offline_eval --sens, PNG colour {SCANNET_COLOR[0]}x{SCANNET_COLOR[1]} resized to 640x480, "
+            f"zlib depth, fake maps): {r['frames']} frames, {r['fps']} fused frames/s end to end, "
+            f"{r['frames'] / r['integrate_s']:.2f} frames/s inside feed_rgbd_frame; SensReader.frame (PNG "
+            f"decode, inflate, colour resize on the CPU) median {float(np.median(read.ms())):.1f} ms; file "
+            f"{size_mb:.1f} MB written in {write_s:.2f} s; {launches} fuse launches, wall distance median "
+            f"{med:.5f} m, p99 {p99:.5f} m; {card}"
+        )
+        t0 = time.perf_counter()
+        native_launches = phase_native_io(path, r, rows, card)
+        print(f"phase 15 wall time {time.perf_counter() - t0:.2f} s")
     if decoders.get("nvjpeg") or decoders.get("nvjpeg (CUDA toolkit)"):
         from ra_slam_tpu_torch.io import jpeg
 
@@ -815,7 +859,7 @@ def phase_recorded_sens(dev, card, decoders):
               f"{float((d > 0).mean()):.4f} of the values differ (bounds {JPEG_MAX_TOL} / {JPEG_MEAN_TOL}); {card}")
         if got.shape != want.shape or d.max() > JPEG_MAX_TOL or d.mean() > JPEG_MEAN_TOL:
             raise AssertionError("nvjpeg against cv2 on the JPEG fixture outside the bounds")
-    return launches
+    return launches, native_launches
 
 
 def _seg_card_vs_cpu(dev, model, widths, rgbs):
@@ -903,19 +947,351 @@ def phase_seg_latency(dev, card):
 def phase_rescore(card):
     """3h: scripts/score_torch_semantic.py on the card and on this
     machine's CPU, beside SEMANTIC_r05.json's JAX-on-TPU numbers."""
-    import importlib.util
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    spec = importlib.util.spec_from_file_location(
-        "score_torch_semantic", os.path.join(here, "scripts", "score_torch_semantic.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = _load_script("score_torch_semantic")
     gpu, cpu = mod.score("cuda"), mod.score("cpu")
     print(f"re-score of demo_seg.msgpack through the port: card {json.dumps(gpu)}; CPU {json.dumps(cpu)}; "
           f"SEMANTIC_r05.json (the JAX package on a TPU) {json.dumps(SEMANTIC_R05)}; {card}")
     for key in ("iou_2d_high_touch", "iou_2d_low_touch", "voxel_iou_high_touch"):
         if not abs(gpu[key] - cpu[key]) <= RESCORE_TOL:
             raise AssertionError(f"re-score {key}: card {gpu[key]}, CPU {cpu[key]}")
+
+
+def _load_script(name):
+    """A module of scripts/ by file path (scripts/ is no package)."""
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(here, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_training(dev, card):
+    """11: scripts/train_torch_semantic.py on the card from the committed
+    JAX init, 300 steps; the trained weights scored by
+    scripts/score_torch_semantic.py --weights; one float32 training step
+    (TF32 off) on the card and on the CPU from the same parameters and
+    batch, the gradients compared per tensor."""
+    from ra_slam_tpu_torch.models.segmentation import make_train_step
+
+    trainer, scorer = _load_script("train_torch_semantic"), _load_script("score_torch_semantic")
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "seg.msgpack")
+        r = trainer.main(["--out", weights, "--device", "cuda"])
+        sc = scorer.main(["--weights", weights, "--device", "cuda"])
+    first, last = r["train_loss_first_last"]
+
+    x, y = trainer.batch_arrays(trainer.frames(seed=0, n=trainer.BATCH))
+    grads, losses = {}, {}
+    for d in ("cpu", dev):
+        net = trainer.load_net(trainer.INIT, dtype=torch.float32).to(d)
+        step = make_train_step(net, torch.optim.Adam(net.parameters(), lr=trainer.LR))
+        losses[str(d)] = float(step(torch.as_tensor(x, device=d), torch.as_tensor(y, device=d)))
+        grads[str(d)] = {n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+    rel = {n: float((grads[str(dev)][n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+           for n, g in grads["cpu"].items()}
+    worst = max(rel, key=rel.get)
+    print(
+        f"training (scripts/train_torch_semantic.py, (16, 32, 64) net from the committed JAX init, "
+        f"{r['train_steps']} Adam steps of batch {trainer.BATCH} at 256x320, bf16 forward): loss {first:.4f} -> "
+        f"{last:.4f} (SEMANTIC_r05.json, JAX on a TPU: 0.6504 -> 0.0352; gates |first - 0.6504| <= "
+        f"{TRAIN_FIRST_TOL}, last < {TRAIN_LAST_BOUND}), {r['steps_per_s']:.2f} steps/s, {r['train_wall_s']:.2f} s, "
+        f"peak device memory {r['peak_memory_gib']:.2f} GiB; re-scored (score_torch_semantic.py --weights, card): "
+        f"2D IoU high touch {sc['iou_2d_high_touch']}, low touch {sc['iou_2d_low_touch']}, voxel IoU "
+        f"{sc['voxel_iou_high_touch']} over {sc['mutual_surface_voxels']} voxels (gates > {TRAIN_IOU_BOUND}; "
+        f"SEMANTIC_r05.json {SEMANTIC_R05['iou_2d_high_touch']} / {SEMANTIC_R05['iou_2d_low_touch']} / "
+        f"{SEMANTIC_R05['voxel_iou_high_touch']}); one float32 step card vs CPU (TF32 off): loss "
+        f"{losses[str(dev)]:.7f} / {losses['cpu']:.7f}, gradient max |diff| / the tensor's max |g|: worst "
+        f"{worst} {rel[worst]:.3g} (bound {TRAIN_GRAD_TOL}), per tensor {json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})}; {card}"
+    )
+    if not (abs(first - 0.6504) <= TRAIN_FIRST_TOL and last < TRAIN_LAST_BOUND):
+        raise AssertionError(f"training loss {first} -> {last}")
+    if not (sc["iou_2d_high_touch"] > TRAIN_IOU_BOUND and sc["voxel_iou_high_touch"] > TRAIN_IOU_BOUND):
+        raise AssertionError(f"card-trained weights score {sc}")
+    if not rel[worst] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"training gradients card vs CPU: {worst} {rel[worst]}")
+
+
+def _stereo_rig():
+    """(spec, baseline, half extents) of the live and dense-stereo phases:
+    phase 9's room at the ZED's VGA eye size, the principal point at the
+    centre (a zero-distortion calibration rectifies to itself)."""
+    from ra_slam_tpu_torch.io.synthetic import SyntheticCameraSpec
+
+    w, h = ZED_VGA
+    spec = SyntheticCameraSpec(fx=ZED_FX, fy=ZED_FX, cx=(w - 1) / 2, cy=(h - 1) / 2, width=w, height=h)
+    return spec, 0.12, np.array([2.0, 1.5, 2.0])
+
+
+def _render_pair(spec, baseline, he, eye, checker=0.5):
+    """(left, right, left depth, world_T_left) of a rectified pair: the
+    right camera is the left moved by the baseline along its x."""
+    from ra_slam_tpu_torch.io.synthetic import look_at, render_box_room
+
+    w_T_l = look_at(np.asarray(eye, np.float64), np.array([0.0, 0.0, 1.5]))
+    w_T_r = w_T_l.copy()
+    w_T_r[:3, 3] += w_T_l[:3, 0] * baseline
+    left, depth, _, _ = render_box_room(spec, w_T_l, he, checker=checker)
+    right = render_box_room(spec, w_T_r, he, checker=checker)[0]
+    return left, right, depth, w_T_l
+
+
+def phase_dense_stereo(dev, card):
+    """12: dense stereo at the ZED's VGA eye size, D = 64, on a synthetic
+    pair (phase 9's room with the 0.125 m texture of
+    tests/test_stereo.py:158), card vs CPU and against the analytic depth."""
+    from ra_slam_tpu_torch.features.pyramid import rgb_to_gray
+    from ra_slam_tpu_torch.features.stereo import dense_stereo_depth
+
+    spec, baseline, he = _stereo_rig()
+    left, right, depth_gt, _ = _render_pair(spec, baseline, he, (0.3, 0.0, 0.0), checker=0.125)
+    fxb = spec.fx * baseline
+    out = {}
+    for d in ("cpu", dev):
+        gl, gr = (rgb_to_gray(torch.as_tensor(a, device=d)) for a in (left, right))
+        out[str(d)] = gl, gr, *(t.cpu().numpy() for t in dense_stereo_depth(gl, gr, fxb, max_disparity=DENSE_D))
+    _, _, cd, cv = out["cpu"]
+    gl, gr, gd, gv = out[str(dev)]
+    clean = slice(2 * DENSE_D + 8, None)  # no sentinel cost reaches these columns' decisions
+    edge_diff = int((cv != gv)[:, : 2 * DENSE_D + 8].sum())
+    both = cv & gv
+    rel_dev = float((np.abs(cd[both] - gd[both]) / cd[both]).max()) if both.any() else 0.0
+    cover = float(gv[:, DENSE_D:].mean())
+    rel = np.abs(gd[gv] - depth_gt[gv]) / depth_gt[gv]
+    call = lambda: dense_stereo_depth(gl, gr, fxb, max_disparity=DENSE_D)
+    ms = _median_ms(call)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+    H, W = gl.shape
+    print(
+        f"dense stereo ({W}x{H}, D {DENSE_D}, census 5x5, 9x9 box, {H * W * DENSE_D / 1e6:.1f} M cost cells): "
+        f"card vs CPU: valid equal in the columns >= {2 * DENSE_D + 8}: {np.array_equal(cv[:, clean], gv[:, clean])}, "
+        f"{edge_diff} pixels differ left of them (bound {DENSE_EDGE_SHARE} of those columns), depth max relative "
+        f"|diff| {rel_dev:.3g} where both valid (bound {DENSE_DEPTH_TOL}); coverage of the columns >= {DENSE_D} "
+        f"{cover:.4f} (gate > 0.5), median relative error against the analytic depth {float(np.median(rel)):.5f} "
+        f"(gate < 0.05), share within 10% {float((rel < 0.1).mean()):.4f}; per call (median of {REPEATS}, CUDA "
+        f"events, after an L2 flush) {ms:.3f} ms, peak device memory of a call {peak_mb:.1f} MiB; {card}"
+    )
+    if not (np.array_equal(cv[:, clean], gv[:, clean]) and edge_diff <= DENSE_EDGE_SHARE * H * (2 * DENSE_D + 8)):
+        raise AssertionError(f"dense stereo card vs CPU: valid differs ({edge_diff} edge pixels)")
+    if not rel_dev <= DENSE_DEPTH_TOL:
+        raise AssertionError(f"dense stereo card vs CPU: depth {rel_dev}")
+    if not (cover > 0.5 and np.median(rel) < 0.05):
+        raise AssertionError(f"dense stereo: coverage {cover}, median relative error {np.median(rel)}")
+
+
+# tests/test_capture.py's ZED factory calibration (HD)
+ZED_CONF = """
+[LEFT_CAM_HD]
+fx=700.1
+fy=700.2
+cx=640.3
+cy=360.4
+k1=-0.17
+k2=0.026
+k3=0.0
+p1=0.0001
+p2=-0.0002
+
+[RIGHT_CAM_HD]
+fx=701.0
+fy=701.1
+cx=639.0
+cy=361.0
+k1=-0.171
+k2=0.027
+
+[STEREO]
+Baseline=119.887
+RX_HD=0.0021
+CV_HD=0.0058
+RZ_HD=-0.0009
+"""
+
+
+def phase_rectify(dev, card):
+    """13: a rectifier from the ZED-like calibration scaled to VGA; a
+    672x376 uint8 pair remapped on the card and on the CPU, exactly."""
+    from ra_slam_tpu_torch.core import rectify
+    from ra_slam_tpu_torch.io.capture import parse_zed_conf
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "SN000.conf")
+        with open(path, "w") as f:
+            f.write(ZED_CONF)
+        c = parse_zed_conf(path, "720p")
+    sx, sy = ZED_VGA[0] / 1280, ZED_VGA[1] / 720
+    mono = lambda m: rectify.CalibMono(m["fx"] * sx, m["fy"] * sy, m["cx"] * sx, m["cy"] * sy,
+                                       [m["k1"], m["k2"], m["p1"], m["p2"], m["k3"]])
+    calib = rectify.CalibStereo(mono(c["left"]), mono(c["right"]), c["rotation"], [-c["baseline"], 0.0, 0.0])
+    t0 = time.perf_counter()
+    rect = rectify.StereoRectifier(ZED_VGA, calib, device=dev)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    w, h = ZED_VGA
+    pair = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(2)]
+    cpu = rect.rectify(*(torch.as_tensor(a) for a in pair))
+    card_in = [torch.as_tensor(a, device=dev) for a in pair]
+    gpu = rect.rectify(*card_in)
+    same = all(torch.equal(a, b.cpu()) for a, b in zip(cpu, gpu))
+    ms = _median_ms(lambda: rect.rectify(*card_in))
+    t0 = time.perf_counter()
+    for _ in range(REPEATS):
+        rect.rectify(*pair)  # numpy in and out, as ZedNativeCamera calls it
+    host_ms = (time.perf_counter() - t0) / REPEATS * 1e3
+    print(
+        f"rectification (ZED-like calibration at {w}x{h}, k1 -0.17): fc {rect.cam_rect_matrix[0, 0]:.4f}, "
+        f"fx*b {rect.focal_x_baseline:.4f}, maps built in {build_s:.3f} s; the pair remapped on the card == CPU: "
+        f"{same}; per pair on the card (median of {REPEATS}, CUDA events, tensors on the card) {ms:.3f} ms, "
+        f"numpy in and out through the card (host clock) {host_ms:.3f} ms; {card}"
+    )
+    if not same:
+        raise AssertionError("rectification card vs CPU differs")
+
+
+class _FakeZedStream:
+    """`ZedNativeCamera`'s interface: rectified VGA pairs of the room
+    along tests/test_live.py's path, rendered and put through the
+    rectifier as ZedNativeCamera does."""
+
+    def __init__(self, rectifier, *args):
+        self.rectifier, self.i, self.times, self.poses = rectifier, 0, [], {}
+
+    def get_stereo_frame(self):
+        spec, baseline, he = _stereo_rig()
+        i = self.i
+        left, right, _, w_T_l = _render_pair(spec, baseline, he, (0.3 - 0.01 * i, 0.005 * i, 0.01 * i))
+        left, right = self.rectifier.rectify(left, right)
+        self.poses[i] = np.linalg.inv(w_T_l.astype(np.float64))[:3]
+        self.times.append(time.perf_counter())
+        self.i += 1
+        return left, right, i / 30.0
+
+    def close(self):
+        pass
+
+
+class _FakeRgbdFromZed:
+    """The RGB-D camera of the live phase in the `ZedDepthCamera` role:
+    the left image and its dense stereo depth on the card. Waits for the
+    first tracked pose, as tests/test_live.py's fake does, so that mapping
+    overlaps tracking."""
+
+    def __init__(self, system, rectifier, fxb, dev):
+        from ra_slam_tpu_torch.io import cameras
+
+        saved = cameras.ZedNativeCamera
+        cameras.ZedNativeCamera = _FakeZedStream
+        try:
+            self.zed = cameras.ZedDepthCamera(rectifier, fxb, max_disparity=DENSE_D, device=dev)
+        finally:
+            cameras.ZedNativeCamera = saved
+        self.system, self.times = system, []
+
+    def get_rgbd_frame(self):
+        if not self.times:
+            t0 = time.monotonic()
+            while len(self.system.slam.pose_buffer) == 0 and time.monotonic() - t0 < 120.0:
+                time.sleep(0.05)
+        _, (rgb, depth, ts) = self.zed.get_stereo_and_rgbd_frame()
+        self.times.append(time.perf_counter())
+        return rgb, depth, ts + 0.004  # a slightly offset clock, like a real rig
+
+
+def phase_live(dev, card):
+    """14: `live.run` on the card with fake cameras: the stereo thread
+    tracks rectified VGA pairs, the mapping thread fuses the left image
+    with its dense stereo depth at the tracked poses."""
+    from ra_slam_tpu_torch.core.config import FeatureConfig, SystemConfig, TrackingConfig, TsdfConfig
+    from ra_slam_tpu_torch.core.rectify import CalibMono, CalibStereo, StereoRectifier, rewrite_camera_config
+    from ra_slam_tpu_torch.eval.ate import ate_rmse
+    from ra_slam_tpu_torch.io.png import read_png
+    from ra_slam_tpu_torch.ops import hamming, tsdf_fuse
+    from ra_slam_tpu_torch.pipeline import live
+    from ra_slam_tpu_torch.pipeline.system import RaSlamSystem
+
+    spec, baseline, he = _stereo_rig()
+    mono = CalibMono(spec.fx, spec.fy, spec.cx, spec.cy, [0.0] * 5)
+    rectifier = StereoRectifier(ZED_VGA, CalibStereo(mono, mono, [0.0, 0.0, 0.0], [-baseline, 0.0, 0.0]), device=dev)
+    w, h = ZED_VGA
+    cfg = rewrite_camera_config(SystemConfig(
+        tsdf=TsdfConfig(voxel_size=0.02, truncation=0.12, max_depth=6.0, log2_num_blocks=15, log2_hash_size=17,
+                        max_visible_blocks=1 << 14, max_new_blocks=1 << 15, width=w, height=h),
+        feature=FeatureConfig(max_num_keypoints=1000, num_levels=3),
+        tracking=TrackingConfig(min_inliers=10, match_radius=30.0).scaled(w / 240),
+    ), rectifier)
+    system = RaSlamSystem(cfg, dev, segmentation_model=None)
+    stereo = _FakeZedStream(rectifier)
+    rgbd = _FakeRgbdFromZed(system, rectifier, cfg.camera.focal_x_baseline, dev)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, _Timed(system, "feed_stereo_frame", False) as feed_s, \
+            _Timed(system, "feed_rgbd_frame", False) as feed_r, _Timed(stereo, "get_stereo_frame", False) as get_s, \
+            _Timed(rgbd, "get_rgbd_frame", False) as get_r:
+        tsdf_fuse.LAUNCHES = hamming.LAUNCHES = 0
+        t0 = time.perf_counter()
+        n_prev, n_slam, n_tsdf = live.run(system, stereo, rgbd, out_dir=tmp, render_every_s=2.0,
+                                          stop_after_frames=LIVE_FRAMES)
+        wall = time.perf_counter() - t0
+        fuse_launches, ham_launches = tsdf_fuse.LAUNCHES, hamming.LAUNCHES
+        pngs = sorted(f for f in os.listdir(tmp) if f.startswith("live_"))
+        shapes = [read_png(os.path.join(tmp, f)).shape for f in pngs]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    est = system.slam.trajectory()
+    ate = ate_rmse(est, sorted(stereo.poses.items()))
+    rate = lambda ts: (len(ts) - 1) / (ts[-1] - ts[0]) if len(ts) > 1 else 0.0
+    alloc_failures = int(system.map.alloc_failures)
+    print(
+        f"live.run with fake cameras ({w}x{h} stereo pairs through the rectifier, RGB-D = left image + dense "
+        f"stereo depth on the card): {n_slam} tracked, {n_tsdf} RGB-D frames, {system.num_integrated} fused, "
+        f"{len(est)} poses, ATE {ate['ate_rmse']:.5f} m (gate <= {ATE_BOUND_M}), alloc_failures {alloc_failures}, "
+        f"{n_prev} previews ({len(pngs)} files, {shapes[:1]}); tracking thread {rate(stereo.times):.2f} f/s, "
+        f"mapping thread {rate(rgbd.times):.2f} f/s (from the cameras' calls), session {wall:.2f} s; per frame "
+        f"(host clock, median): tracking thread camera {float(np.median(get_s.ms())):.1f} ms (render, rectify) + "
+        f"feed_stereo_frame {float(np.median(feed_s.ms())):.1f} ms, mapping thread camera "
+        f"{float(np.median(get_r.ms()[1:])):.1f} ms (render, rectify, dense stereo) + feed_rgbd_frame "
+        f"{float(np.median(feed_r.ms())):.1f} ms; "
+        f"{fuse_launches} fuse and {ham_launches} Hamming launches; peak device memory {peak_gb:.2f} GiB; {card}"
+    )
+    if not (n_slam >= LIVE_FRAMES and n_tsdf >= LIVE_FRAMES):
+        raise AssertionError(f"live: {n_slam} / {n_tsdf} frames")
+    if not ate["ate_rmse"] <= ATE_BOUND_M:
+        raise AssertionError(f"live: ATE {ate}")
+    if not (system.num_integrated >= LIVE_MIN_FUSED and alloc_failures == 0):
+        raise AssertionError(f"live: {system.num_integrated} fused, {alloc_failures} allocation failures")
+    if not (pngs and shapes[0] == (h, w, 4)):
+        raise AssertionError(f"live: previews {pngs} {shapes}")
+    if not (ham_launches >= LIVE_FRAMES and fuse_launches >= system.num_integrated):
+        raise AssertionError(f"live: {ham_launches} Hamming, {fuse_launches} fuse launches")
+    return fuse_launches, ham_launches
+
+
+def phase_native_io(sens_path, plain, plain_rows, card):
+    """15: `offline_eval --sens --native-io` over phase 3e's file: the same
+    map as 3e's run without the flag, byte for byte."""
+    from ra_slam_tpu_torch.ops import tsdf_fuse
+    from ra_slam_tpu_torch.pipeline import offline_eval
+
+    with tempfile.TemporaryDirectory() as out:
+        tsdf_fuse.LAUNCHES = 0
+        r = offline_eval.main(["--sens", sens_path, "--native-io", "--max-frames", str(SENS_FRAMES), "--download", out])
+        launches = tsdf_fuse.LAUNCHES
+        rows = np.fromfile(os.path.join(out, "tsdf.bin"), "<f4").reshape(-1, 5)
+    same = np.array_equal(rows, plain_rows) and all(r[k] == plain[k] for k in ("frames", "num_active", "tsdf_rows"))
+    print(
+        f".sens path with --native-io (two decode threads, eight frames ahead): {r['frames']} frames, {r['fps']} "
+        f"fused frames/s end to end (3e without the flag: {plain['fps']}), {r['frames'] / r['integrate_s']:.2f} "
+        f"inside feed_rgbd_frame; tsdf.bin equal to 3e's: {same}; {launches} fuse launches; {card}"
+    )
+    if not same:
+        raise AssertionError(".sens --native-io differs from the plain read")
+    if launches < SENS_FRAMES:
+        raise AssertionError(f"--native-io: {launches} fuse launches")
+    return launches
 
 
 def phase_hamming_vs_plain(dev, card):
@@ -1176,7 +1552,7 @@ def phase_stereo(dev, card):
     from ra_slam_tpu_torch.core.camera import PinholeCamera
     from ra_slam_tpu_torch.core.config import FeatureConfig, TrackingConfig
     from ra_slam_tpu_torch.core.se3 import SE3, log_se3
-    from ra_slam_tpu_torch.io.synthetic import SyntheticCameraSpec, look_at, render_box_room
+    from ra_slam_tpu_torch.io.synthetic import SyntheticCameraSpec
     from ra_slam_tpu_torch.ops import hamming
     from ra_slam_tpu_torch.slam.system import SlamSystem
 
@@ -1195,11 +1571,7 @@ def phase_stereo(dev, card):
     hamming.LAUNCHES = 0
     errs, t0 = [], time.perf_counter()
     for i in range(STEREO_FRAMES):
-        w_T_l = look_at(np.array((0.3 - 0.03 * i, 0.02 * i, 0.05 * i)), np.array([0.0, 0.0, 1.5]))
-        w_T_r = w_T_l.copy()
-        w_T_r[:3, 3] += w_T_l[:3, 0] * baseline
-        rgb_l = render_box_room(spec, w_T_l, he)[0]
-        rgb_r = render_box_room(spec, w_T_r, he)[0]
+        rgb_l, rgb_r, _, w_T_l = _render_pair(spec, baseline, he, (0.3 - 0.03 * i, 0.02 * i, 0.05 * i))
         gt = SE3.from_matrix(torch.as_tensor(np.linalg.inv(w_T_l), dtype=torch.float32, device=dev))
         info = slam.feed_stereo_frame(rgb_l, rgb_r, float(i), pose_hint=gt if i == 0 else None)
         if not info.tracked:
@@ -1242,26 +1614,37 @@ def main():
     print(f"builds done in {time.perf_counter() - t0:.2f} s (in parallel)")
     decoders = probe_decoders()
 
-    numbers = phase_kernel_vs_plain(dev, card)
-    phase_fusion_device_vs_cpu(dev, card)
-    launches, system = phase_main_path(card)
-    phase_raycast(system, card)
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {label} wall time {time.perf_counter() - t0:.2f} s")
+        return out
+
+    numbers = phase("2", phase_kernel_vs_plain, dev, card)
+    phase("2b", phase_fusion_device_vs_cpu, dev, card)
+    launches, system = phase("3", phase_main_path, card)
+    phase("3b", phase_raycast, system, card)
     del system
-    phase_readers_device_vs_cpu(dev, card)
-    launches += phase_recorded_folder(dev, card)
-    launches += phase_recorded_sens(dev, card, decoders)
-    phase_unet_resize_device_vs_cpu(dev, card)
-    phase_seg_latency(dev, card)
-    phase_rescore(card)
-    ham_numbers = phase_hamming_vs_plain(dev, card)
-    ham_launches, ate_loop_off = phase_tracking_path(card)
-    loop_launches, slam = phase_loop_tracking(card, ate_loop_off)
-    phase_ba_pgo_device_vs_cpu(slam, card)
+    phase("3c", phase_readers_device_vs_cpu, dev, card)
+    launches += phase("3d", phase_recorded_folder, dev, card)
+    sens_launches, native_launches = phase("3e and 15", phase_recorded_sens, dev, card, decoders)
+    launches += sens_launches + native_launches
+    phase("3f", phase_unet_resize_device_vs_cpu, dev, card)
+    phase("3g", phase_seg_latency, dev, card)
+    phase("3h", phase_rescore, card)
+    phase("11", phase_training, dev, card)
+    ham_numbers = phase("4", phase_hamming_vs_plain, dev, card)
+    ham_launches, ate_loop_off = phase("5", phase_tracking_path, card)
+    loop_launches, slam = phase("6", phase_loop_tracking, card, ate_loop_off)
+    phase("7", phase_ba_pgo_device_vs_cpu, slam, card)
     del slam
-    full_fuse, full_ham = phase_full_system(card)
-    stereo_launches = phase_stereo(dev, card)
-    launches += full_fuse
-    ham_launches += loop_launches + full_ham + stereo_launches
+    full_fuse, full_ham = phase("8", phase_full_system, card)
+    stereo_launches = phase("9", phase_stereo, dev, card)
+    phase("12", phase_dense_stereo, dev, card)
+    phase("13", phase_rectify, dev, card)
+    live_fuse, live_ham = phase("14", phase_live, dev, card)
+    launches += full_fuse + live_fuse
+    ham_launches += loop_launches + full_ham + stereo_launches + live_ham
 
     print(card)
     print(json.dumps({"kernels": [{

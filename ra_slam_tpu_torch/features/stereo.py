@@ -1,14 +1,26 @@
-"""Stereo keypoint depth from rectified image pairs (counterpart of
-`ra_slam_tpu/features/stereo.py`, its keypoint half).
+"""Stereo depth from rectified image pairs (counterpart of
+`ra_slam_tpu/features/stereo.py`).
 
-One left patch and one right epipolar strip per keypoint in a single
-batched gather, all candidate ZNCC scores as one `[F, D]` tensor, the
-best integer disparity refined by a parabola, depth = fx*baseline /
-disparity. `sparse_depth_image` scatters the keypoint depths into an
-image so stereo frames reuse the RGB-D landmark path.
+Keypoint depth: one left patch and one right epipolar strip per keypoint
+in a single batched gather, all candidate ZNCC scores as one `[F, D]`
+tensor, the best integer disparity refined by a parabola, depth =
+fx*baseline / disparity. `sparse_depth_image` scatters the keypoint
+depths into an image so stereo frames reuse the RGB-D landmark path.
 
-Dense stereo depth (`dense_stereo_depth`, `census_transform`) belongs to
-the camera layer and is not ported yet.
+Dense depth (the ZED camera's depth for the TSDF): `census_transform`
+packs the (2r+1)^2 - 1 neighbour comparisons into an int32 descriptor
+(24 bits at radius 2; torch has no uint32 shifts on the CPU and no
+popcount), `dense_stereo_depth` builds the `[H, D, W]` Hamming cost
+volume with one gather and a byte-table popcount, box-sums it over 9x9
+windows as `reduce_window`'s zero-padded "SAME" window (9 shifted adds
+per axis: sums of at most 81 integers <= 24 are exact in float32, in any
+order), then winner-take-all with the uniqueness ratio, the left-right
+check and the subpixel parabola. Out-of-range disparities cost 1e9, so a
+window that reaches them sums in an order-dependent way (a float32 ulp
+at 1e9 is 64): there, near the left border, the second-best cost, the
+parabola's neighbours and the right view's costs may differ from JAX's.
+Depth divides a tensor by a tensor (torch's `float / tensor` is a
+reciprocal and a multiply).
 """
 
 from __future__ import annotations
@@ -112,3 +124,119 @@ def sparse_depth_image(
     vi = torch.clamp(torch.round(uv[:, 1]).to(torch.int64), 0, height - 1)
     img = torch.zeros(height * width, dtype=torch.float32, device=uv.device)
     return scatter_rows(img, vi * width + ui, depth, valid).reshape(height, width)
+
+
+# ---------------------------------------------------------------------------
+# Dense stereo depth (the ZED-SDK dense-disparity role)
+# ---------------------------------------------------------------------------
+
+COST_SENTINEL = 1e9  # the cost of a disparity beyond the left border
+
+
+def census_transform(img: torch.Tensor, radius: int = 2) -> torch.Tensor:
+    """[H, W] -> [H, W] int32 census descriptor: bit k set iff the k-th
+    neighbour (in a (2r+1)^2 window, centre excluded, row-major) is
+    darker than the centre; the borders wrap as `jnp.roll`'s."""
+    nbits = (2 * radius + 1) ** 2 - 1
+    if nbits > 31:
+        raise ValueError(f"census radius {radius} needs {nbits} bits; int32 descriptors hold 31")
+    bits = torch.zeros(img.shape, dtype=torch.int32, device=img.device)
+    k = 0
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            if dy == 0 and dx == 0:
+                continue
+            shifted = torch.roll(img, (-dy, -dx), dims=(0, 1))
+            bits = bits | ((shifted < img).to(torch.int32) << k)
+            k += 1
+    return bits
+
+
+def _popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of non-negative int32 values below 2^24, as uint8 (three
+    byte-table lookups)."""
+    table = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.uint8, device=x.device)
+    return table[x & 0xFF] + table[(x >> 8) & 0xFF] + table[(x >> 16) & 0xFF]
+
+
+def _box_sum(cost: torch.Tensor, half: int) -> torch.Tensor:
+    """`reduce_window(cost, 0, add, (2h+1, 1, 2h+1), (1, 1, 1), "SAME")`
+    of an [H, D, W] volume: zero padding, one axis after the other."""
+    H, _, W = cost.shape
+    p = torch.nn.functional.pad(cost, (half, half, 0, 0, half, half))
+    rows = p[: H]
+    for i in range(1, 2 * half + 1):
+        rows = rows + p[i: i + H]
+    out = rows[..., :W]
+    for j in range(1, 2 * half + 1):
+        out = out + rows[..., j: j + W]
+    return out
+
+
+def dense_stereo_depth(
+    gray_l: torch.Tensor,  # [H, W] float32 rectified left
+    gray_r: torch.Tensor,  # [H, W] float32 rectified right
+    focal_x_baseline: float,  # fx * baseline (pixel * meters)
+    max_disparity: int = 64,
+    block: int = 9,
+    census_radius: int = 2,
+    min_depth: float = 0.1,
+    max_depth: float = 40.0,
+    uniqueness: float = 1.1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense disparity -> depth map of a rectified pair: census, the
+    [H, D, W] Hamming cost volume, 9x9 box aggregation, winner-take-all
+    with the left-right check, the uniqueness ratio and the subpixel
+    parabola. Returns (depth [H, W] float32, 0 where invalid; valid
+    [H, W] bool)."""
+    H, W = gray_l.shape
+    D = max_disparity
+    dev = gray_l.device
+    cl = census_transform(gray_l, census_radius)
+    cr = census_transform(gray_r, census_radius)
+
+    u = torch.arange(W, device=dev)
+    d = torch.arange(D, device=dev)
+    uc = torch.clamp(u[None, :] - d[:, None], 0, W - 1)  # right column of (d, u)
+    cost = _popcount(cl[:, None, :] ^ cr[:, uc]).to(torch.float32)  # [H, D, W]
+    inb = (u[None, :] - d[:, None]) >= 0
+    cost = torch.where(inb[None], cost, COST_SENTINEL)
+    agg = _box_sum(cost, block // 2)  # [H, D, W]
+    del cost
+
+    best_d = torch.argmin(agg, dim=1)  # [H, W], the first minimum
+    ar = agg.movedim(1, -1)  # [H, W, D]
+    c0 = torch.gather(ar, -1, best_d[..., None])[..., 0]
+    # uniqueness: the best must beat the best outside +-1 by the ratio
+    near = (d[None, None, :] - best_d[..., None]).abs() <= 1
+    second = torch.where(near, COST_SENTINEL, ar).amin(dim=-1)
+    uniq_ok = c0 * uniqueness < second
+
+    # left-right consistency: the matched right pixel's own best disparity
+    # (right-view cost at (d, v, u_r) = left cost at column u_r + d)
+    ul = torch.clamp(u[None, :] + d[:, None], 0, W - 1)  # [D, W]
+    right_cost = torch.gather(agg, 2, ul[None].expand(H, D, W))  # [H, D, W]
+    best_r = torch.argmin(right_cost, dim=1)
+    del right_cost
+    ur = torch.clamp(u[None, :] - best_d, 0, W - 1)
+    lr_ok = (torch.gather(best_r, 1, ur) - best_d).abs() <= 1
+
+    # subpixel parabola on the aggregated cost
+    dm = torch.clamp(best_d, 1, D - 2)
+    lo = torch.gather(ar, -1, (dm - 1)[..., None])[..., 0]
+    hi = torch.gather(ar, -1, (dm + 1)[..., None])[..., 0]
+    cc = torch.gather(ar, -1, dm[..., None])[..., 0]
+    denom = lo + hi - 2.0 * cc
+    off = torch.where(denom.abs() > 1e-6, 0.5 * (lo - hi) / torch.clamp(denom, min=1e-6), 0.0)
+    disp = best_d.to(torch.float32) + torch.clamp(off, -0.5, 0.5)
+
+    depth = torch.full_like(disp, focal_x_baseline) / torch.clamp(disp, min=1e-6)
+    valid = (
+        (best_d > 0)
+        & uniq_ok
+        & lr_ok
+        & (depth > min_depth)
+        & (depth < max_depth)
+        & (u[None, :] >= D)  # the full search range is available
+    )
+    return torch.where(valid, depth, 0.0), valid

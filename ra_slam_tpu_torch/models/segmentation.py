@@ -30,11 +30,19 @@ reads. `infer_one` pads the frame to a multiple of 32, runs softmax,
 crops, and resizes back to the engine's size with cv2's INTER_LINEAR
 (`ops/resize.py`).
 
+`make_train_step(net, optimizer)` is the JAX package's optax step with
+`torch.autograd` for `jax.value_and_grad`: the masked cross-entropy of
+the 2-class logits (labels -1 left out), the forward in the net's dtype
+with float32 parameters, and `optimizer` (`torch.optim.Adam(lr,
+betas=(0.9, 0.999), eps=1e-8)` is `optax.adam(lr)`) updating them in
+place. `scripts/train_torch_semantic.py` drives it.
+
     python -m ra_slam_tpu_torch.models.segmentation --iters 1000 --device cuda
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -170,6 +178,18 @@ def init_params_(net: SegmentationNet, generator: torch.Generator) -> None:
                 m.bias.zero_()
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN's TF32 off inside the block (it is on by default, and would
+    run the float32 convolutions in TF32), the caller's flag restored."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
 def _pad_to_multiple(h: int, w: int, m: int = 32) -> Tuple[int, int]:
     return ((h + m - 1) // m) * m, ((w + m - 1) // m) * m
 
@@ -209,13 +229,8 @@ class InferenceEngine:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Logits [N, 2, H, W] of [N, 3, H, W] inputs in [0, 1], with
         cuDNN's TF32 off for the call."""
-        saved = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            with torch.no_grad():
-                return self.net(x)
-        finally:
-            torch.backends.cudnn.allow_tf32 = saved
+        with _no_tf32(), torch.no_grad():
+            return self.net(x)
 
     def segment(self, rgb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ht, lt) float32 maps on the engine's device at its size, of
@@ -250,6 +265,33 @@ class InferenceEngine:
 
         with open(path, "wb") as f:
             f.write(packb(seg_state_dict_to_flax(self.net.state_dict(), self.net)))
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of `logits` [N, C, H, W] against integer
+    `labels` [N, H, W] over the pixels whose label is >= 0:
+    sum(ce * mask) / max(sum(mask), 1)."""
+    mask = (labels >= 0).to(torch.float32)
+    ce = F.cross_entropy(logits.float(), labels.clamp(min=0), reduction="none")
+    return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def make_train_step(net: SegmentationNet, optimizer: torch.optim.Optimizer):
+    """`step(x, y) -> loss`: one optimizer step on `net`'s parameters, in
+    place. `x` is [N, 3, H, W] float in [0, 1], `y` [N, H, W] int64 in {0
+    (high touch), 1 (low touch)} with -1 unlabelled. cuDNN's TF32 is off
+    for the step, as in `InferenceEngine.forward`, so a float32 net
+    computes in float32 on the card too."""
+
+    def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        with _no_tf32():
+            optimizer.zero_grad(set_to_none=True)
+            loss = masked_cross_entropy(net(x), y)
+            loss.backward()
+            optimizer.step()
+        return loss.detach()
+
+    return step
 
 
 def _bench(argv=None) -> dict:

@@ -1,0 +1,160 @@
+"""Live robot pipeline: a stereo tracking thread and an RGB-D mapping
+thread (counterpart of `ra_slam_tpu/pipeline/live.py`).
+
+Two free-running camera loops bridged only by the timestamped pose
+buffer: one thread feeds the rectified stereo camera into SLAM
+(`RaSlamSystem.feed_stereo_frame`: the Hamming kernel on every frame),
+the other feeds the RGB-D camera through segmentation into the TSDF map
+at the timestamp-interpolated tracked poses (`feed_rgbd_frame`: the fuse
+kernel on every frame), and the main thread writes raycast previews
+(`live_{i:05d}.png`, RGBA through `io/png.py`) and handles shutdown.
+
+Both threads share one device. That is safe: the facade's `RLock`
+serialises tracking, fusion and rendering on the map and the SLAM state
+(`pipeline/system.py`), the pose buffer has its own lock
+(`utils/pose_buffer.py`), segmentation runs outside the lock on the
+mapping thread, and torch orders the two threads' launches on the
+device's stream.
+
+    python -m ra_slam_tpu_torch.pipeline.live --config zed_l515.yaml \\
+        --model seg.msgpack --out /tmp/live --device cuda
+
+`main` needs a ZED on UVC (cv2) and a RealSense (pyrealsense2); `run`
+takes any objects with `get_stereo_frame()` / `get_rgbd_frame()`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import threading
+import time
+
+
+def run(system, stereo_cam, rgbd_cam, out_dir=None, render_every_s=2.0, stop_after_s=None,
+        stop_after_frames=None):
+    """The reference's `run()` thread layout. Camera threads are daemon
+    threads joined with a 30 s timeout on shutdown: the join lets
+    in-flight device work finish, and a camera hung inside `get_*` is
+    logged and abandoned rather than wedging the interpreter's exit. A
+    camera thread's exception stops the session and is re-raised.
+    Returns (previews, slam_frames, tsdf_frames)."""
+    stop = threading.Event()
+    counts = {"slam": 0, "tsdf": 0}
+    errors: list = []
+
+    def stop_if_done():
+        if errors or (
+            stop_after_frames is not None
+            and counts["slam"] >= stop_after_frames
+            and counts["tsdf"] >= stop_after_frames
+        ):
+            stop.set()
+
+    def loop(name, get, feed):
+        try:
+            while not stop.is_set():
+                frame = get()
+                if stop.is_set():
+                    break
+                feed(*frame)
+                counts[name] += 1
+                if stop_after_frames is not None and counts[name] >= stop_after_frames:
+                    break
+        except Exception as e:  # a camera or device fault ends the session
+            errors.append((name, e))
+        finally:
+            stop_if_done()
+
+    threads = [
+        threading.Thread(target=loop, name="t_slam",
+                         args=("slam", stereo_cam.get_stereo_frame, system.feed_stereo_frame)),
+        threading.Thread(target=loop, name="t_tsdf",
+                         args=("tsdf", rgbd_cam.get_rgbd_frame, system.feed_rgbd_frame)),
+    ]
+    for t in threads:
+        t.daemon = True
+        t.start()
+
+    def render_preview(i):
+        pose = system.slam.pose_buffer.latest() if system.slam else None
+        if pose is None or not out_dir:
+            return False
+        import numpy as np
+
+        from ra_slam_tpu_torch.io.png import write_png
+
+        rgba = system.render(pose)["rgba"].cpu().numpy().astype(np.uint8)
+        os.makedirs(out_dir, exist_ok=True)
+        write_png(os.path.join(out_dir, f"live_{i:05d}.png"), rgba)
+        return True
+
+    t0 = time.monotonic()
+    last_render = t0
+    i = 0
+    try:
+        while not stop.is_set() and any(t.is_alive() for t in threads):
+            time.sleep(0.05)
+            now = time.monotonic()
+            if now - last_render >= render_every_s:
+                last_render = now
+                i += int(render_preview(i))
+            if stop_after_s and now - t0 > stop_after_s:
+                break
+    except KeyboardInterrupt:
+        pass
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30.0)
+            if t.is_alive():
+                logging.getLogger(__name__).error(
+                    "camera thread %s did not stop within 30 s (camera hung in capture?); abandoning it", t.name)
+    if i == 0:  # the session ended before the first render tick
+        i += int(render_preview(0))
+    if errors:
+        name, e = errors[0]
+        raise RuntimeError(f"camera thread '{name}' failed: {e}") from e
+    return i, counts["slam"], counts["tsdf"]
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", required=True, help="system YAML (reference schema)")
+    p.add_argument("--calib", default=None,
+                   help="stereo calibration YAML (Calibration.* keys); defaults to --config")
+    p.add_argument("--model", default=None, help="segmentation checkpoint (flax msgpack)")
+    p.add_argument("--out", default=None, help="render preview dir")
+    p.add_argument("--zed-device", type=int, default=0)
+    p.add_argument("--duration", type=float, default=None, help="seconds")
+    p.add_argument("--device", default="cuda", help="torch device of tracking, segmentation and the map")
+    args = p.parse_args(argv)
+
+    from ra_slam_tpu_torch.core.config import load_yaml_config
+    from ra_slam_tpu_torch.core.rectify import StereoRectifier, rewrite_camera_config
+    from ra_slam_tpu_torch.io.cameras import RealSenseCamera, ZedNativeCamera
+    from ra_slam_tpu_torch.pipeline.system import RaSlamSystem
+
+    cfg = load_yaml_config(args.config)
+    rectifier = StereoRectifier.from_yaml(args.calib or args.config, device=args.device)
+    cfg = rewrite_camera_config(cfg, rectifier)
+
+    system = RaSlamSystem(cfg, args.device, segmentation_model=args.model)
+    stereo = ZedNativeCamera(rectifier, device_id=args.zed_device)
+    try:
+        rgbd = RealSenseCamera()
+    except BaseException:
+        stereo.close()
+        raise
+    try:
+        n, n_slam, n_tsdf = run(system, stereo, rgbd, out_dir=args.out, stop_after_s=args.duration)
+        print(f"live session done: {system.num_integrated} frames fused "
+              f"({n_slam} tracked / {n_tsdf} rgbd), {n} previews")
+    finally:
+        stereo.close()
+        rgbd.close()
+
+
+if __name__ == "__main__":
+    main()

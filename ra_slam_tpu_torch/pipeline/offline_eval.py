@@ -22,13 +22,15 @@ result keys, ATE/RPE of the tracked trajectory included.
     python -m ra_slam_tpu_torch.pipeline.offline_eval --folder capture/ \\
         --model seg.msgpack --download out/
 
-`--native-io` (the JAX package's C++ `.sens` decoder and prefetcher) is
-not ported and raises.
+`--native-io` reads a `--sens` file through `io/prefetch.py`: two
+Python threads decode up to eight frames ahead of the device (the JAX
+package's C++ decoder and prefetcher).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import time
@@ -62,19 +64,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trajectory-out", default=None,
                    help="save the (SLAM) trajectory in id + 3x4 format")
     p.add_argument("--native-io", action="store_true",
-                   help="the C++ .sens decoder + threaded prefetcher (not ported; raises)")
+                   help="decode --sens frames ahead in two threads (io/prefetch.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the map (cuda runs the CUDA fuse kernel)")
     return p
 
 
 def load_dataset(args):
-    if args.native_io:
-        raise NotImplementedError(
-            "--native-io (C++ .sens decoder and prefetcher) is not ported yet: ROADMAP queue 1, "
-            "item 6b; drop the flag to read the .sens file with ra_slam_tpu_torch.io.sens"
-        )
     if args.sens:
+        if args.native_io:
+            from ra_slam_tpu_torch.io.prefetch import NativeSensReader
+
+            return NativeSensReader(args.sens)
         from ra_slam_tpu_torch.io.sens import SensReader
 
         return SensReader(args.sens)
@@ -129,11 +130,15 @@ def main(argv=None) -> dict:
     sys_ = RaSlamSystem(cfg, args.device, segmentation_model=args.model,
                         enable_tracking=args.use_slam)
 
+    if args.sens and args.native_io:  # decoding overlaps the device's work
+        frames = ds.prefetch(num_threads=2, capacity=8)
+    else:
+        frames = (ds.frame(i) for i in range(n))
+
     t_int = t_track = 0.0
     gt_traj = []  # (frame_id, 3x4) ground-truth rows for ATE
     t0 = time.perf_counter()
-    for i in range(n):
-        fr = ds.frame(i)
+    for i, fr in enumerate(itertools.islice(frames, n)):
         if fr.cam_T_world is not None:
             gt_traj.append((fr.frame_id, np.asarray(fr.cam_T_world)[:3, :4]))
         if args.use_slam:
@@ -158,6 +163,7 @@ def main(argv=None) -> dict:
             os.makedirs(args.download, exist_ok=True)
             rgba = sys_.render(pose)["rgba"].cpu().numpy().astype(np.uint8)
             write_png(os.path.join(args.download, f"render_{i:05d}.png"), rgba)
+    frames.close()  # stops the prefetch threads
     sys_.synchronize()
     wall = time.perf_counter() - t0
 

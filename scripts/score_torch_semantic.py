@@ -2,10 +2,12 @@
 scoring half of `scripts/gen_semantic.py` (which trained the weights and
 wrote SEMANTIC_r05.json), on `--device`.
 
-    python3 scripts/score_torch_semantic.py --device cuda|cpu
+    python3 scripts/score_torch_semantic.py --device cuda|cpu [--weights seg.msgpack]
 
-Loads `ra_slam_tpu/models/demo_seg.msgpack` (a flax checkpoint) into a
-(16, 32, 64)-width `InferenceEngine`, then
+Loads `--weights` (a flax checkpoint; by default
+`ra_slam_tpu/models/demo_seg.msgpack`, or what
+`scripts/train_torch_semantic.py` writes) into a (16, 32, 64)-width
+`InferenceEngine`, then
   1. 2D IoU on 16 held-out frames (seed 3, 4 clutter boxes, 320x240
      padded to 256x320): prob(high touch) > 0.5 against the ground-truth
      maps, both classes;
@@ -58,8 +60,8 @@ def net_prob(engine, fs):
     return torch.softmax(engine.forward(xt), dim=1)[:, 0, :H]
 
 
-def score(device) -> dict:
-    engine = InferenceEngine(WEIGHTS, width=W, height=H, widths=(16, 32, 64), device=device)
+def score(device, weights: str = WEIGHTS) -> dict:
+    engine = InferenceEngine(weights, width=W, height=H, widths=(16, 32, 64), device=device)
     dev = engine.device
 
     _, test = frames(16)
@@ -115,8 +117,9 @@ def score(device) -> dict:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--weights", default=WEIGHTS, help="flax msgpack of a (16, 32, 64) net")
     args = p.parse_args(argv)
-    out = score(args.device)
+    out = score(args.device, args.weights)
     if torch.device(args.device).type == "cuda":
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])

@@ -1,7 +1,8 @@
 """Tests of the PyTorch port that need the GPU: the CUDA fuse and
 Hamming kernels against their plain PyTorch versions, the fusion path,
-raycast, meshing, resizing and the UNet on the card against the same on
-the CPU, and nvjpeg against cv2's pixels on the JPEG fixture. They
+raycast, meshing, resizing, the UNet, a training step, dense stereo and
+rectification on the card against the same on the CPU, and nvjpeg
+against cv2's pixels on the JPEG fixture. They
 skip where torch sees no CUDA device. This file imports no JAX, so that it runs on a machine without
 it; tests/conftest.py does import JAX, so run it there as
 
@@ -271,3 +272,82 @@ def test_unet_cuda_matches_cpu(cuda):
             for d in ("cpu", cuda))
     assert np.abs(c - g).max() <= 0.06 and ((c > 0.5) != (g > 0.5)).mean() <= 1e-3
     assert torch.backends.cudnn.allow_tf32  # the engine restores the flag it clears for its call
+
+
+@pytest.mark.cuda
+def test_dense_stereo_cuda_matches_cpu(cuda):
+    """`dense_stereo_depth` of one synthetic pair at 240x180, D = 32:
+    `valid` equal where no sentinel cost reaches the decision (columns >=
+    2 D + 8), at most 2% of the pixels left of them differing, depth the
+    same float32 division where both are valid."""
+    from ra_slam_tpu_torch.features.pyramid import rgb_to_gray
+    from ra_slam_tpu_torch.features.stereo import dense_stereo_depth
+    from ra_slam_tpu_torch.io.synthetic import look_at, render_box_room
+
+    spec = SyntheticCameraSpec(fx=120.0, fy=120.0, cx=119.5, cy=89.5, width=240, height=180)
+    w_T_l = look_at(np.array([0.3, 0.0, 0.0]), np.array([0.0, 0.0, 1.5]))
+    w_T_r = w_T_l.copy()
+    w_T_r[:3, 3] += w_T_l[:3, 0] * 0.12
+    he = np.array([2.0, 1.5, 2.0])
+    pair = [render_box_room(spec, m, he, checker=0.125)[0] for m in (w_T_l, w_T_r)]
+    out = {}
+    for dev in ("cpu", cuda):
+        gl, gr = (rgb_to_gray(torch.as_tensor(a, device=dev)) for a in pair)
+        out[str(dev)] = [t.cpu().numpy() for t in dense_stereo_depth(gl, gr, 120.0 * 0.12, max_disparity=32)]
+    (cd, cv), (gd, gv) = out["cpu"], out[str(cuda)]
+    np.testing.assert_array_equal(cv[:, 72:], gv[:, 72:])
+    assert (cv != gv)[:, :72].mean() <= 0.02
+    both = cv & gv
+    assert both.mean() > 0.3 and (np.abs(cd[both] - gd[both]) / cd[both]).max() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_remap_cuda_matches_cpu(cuda):
+    """`remap_linear` on the card equals the CPU exactly (float64 steps,
+    each rounded to float32 as on the CPU), and a ZED-like rectifier's
+    pair too."""
+    from ra_slam_tpu_torch.core import rectify
+
+    rng = np.random.default_rng(0)
+    h, w = 376, 672
+    img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    mx = rng.uniform(-3, w + 2, (h, w)).astype(np.float32)
+    my = rng.uniform(-3, h + 2, (h, w)).astype(np.float32)
+    got = {}
+    for dev in ("cpu", cuda):
+        plan = rectify.remap_plan(torch.as_tensor(mx, device=dev), torch.as_tensor(my, device=dev), (h, w))
+        got[str(dev)] = rectify.remap_linear(torch.as_tensor(img, device=dev), plan).cpu()
+    assert torch.equal(got["cpu"], got[str(cuda)])
+    mono = rectify.CalibMono(367.6, 367.7, 336.2, 188.2, [-0.17, 0.026, 0.0001, -0.0002, 0.0])
+    rect = rectify.StereoRectifier((w, h), rectify.CalibStereo(mono, mono, [0.0021, 0.0058, -0.0009],
+                                                               [-0.12, 0.0, 0.0]), device=cuda)
+    a = rect.rectify(torch.as_tensor(img), torch.as_tensor(img))
+    b = rect.rectify(torch.as_tensor(img, device=cuda), torch.as_tensor(img, device=cuda))
+    assert all(torch.equal(x, y.cpu()) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_train_step_cuda_matches_cpu(cuda):
+    """One float32 training step (TF32 off) of a (16, 32) net on the card
+    and on the CPU from the same parameters and batch: the loss within
+    1e-5 and each gradient within 1e-2 of its tensor's largest |g|
+    (chip_smoke.py phase 11's bound)."""
+    from ra_slam_tpu_torch.models.segmentation import SegmentationNet, init_params_, make_train_step
+
+    rng = np.random.default_rng(0)
+    x = rng.random((2, 3, 64, 96), dtype=np.float32)
+    y = rng.integers(-1, 2, (2, 64, 96))
+    ref = SegmentationNet((16, 32), dtype=torch.float32)
+    init_params_(ref, torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", cuda):
+        net = SegmentationNet((16, 32), dtype=torch.float32)
+        net.load_state_dict(ref.state_dict())
+        net.to(dev)
+        step = make_train_step(net, torch.optim.Adam(net.parameters(), lr=3e-4))
+        loss = float(step(torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)))
+        out[str(dev)] = loss, {n: p.grad.cpu() for n, p in net.named_parameters()}
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert abs(lc - lg) <= 1e-5
+    for n, g in gc.items():
+        assert (gg[n] - g).abs().max() <= 1e-2 * g.abs().max(), n

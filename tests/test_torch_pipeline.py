@@ -121,6 +121,27 @@ n = viewer.main(["--checkpoint", os.path.join(out, "ckpt"), "--out", os.path.joi
                  "--orbit", "2", "--voxel-size", "0.05", "--truncation", "0.3", "--log2-blocks", "12",
                  "--width", "160", "--height", "120", "--device", "cpu"])
 assert n == 2 and len(os.listdir(os.path.join(out, "views"))) == 4
+from ra_slam_tpu_torch.core.rectify import StereoRectifier
+from ra_slam_tpu_torch.features.pyramid import rgb_to_gray
+from ra_slam_tpu_torch.features.stereo import dense_stereo_depth
+from ra_slam_tpu_torch.io.capture import calib_to_yaml
+calib = {side: dict(fx=80.0, fy=80.0, cx=79.5, cy=59.5, k1=-0.1, k2=0.01, k3=0.0, p1=0.0, p2=0.0)
+         for side in ("left", "right")}
+with open(os.path.join(out, "calib.yaml"), "w") as f:
+    f.write(calib_to_yaml(dict(calib, baseline=0.12, rotation=[0.0, 0.001, 0.0]), 160, 120))
+rect = StereoRectifier.from_yaml(os.path.join(out, "calib.yaml"), device="cpu")
+left, right = rect.rectify(fr.rgb, ds.frame(1).rgb)
+g = lambda a: rgb_to_gray(__import__("torch").as_tensor(a))
+assert dense_stereo_depth(g(left), g(right), rect.focal_x_baseline, max_disparity=16)[0].shape == (120, 160)
+from ra_slam_tpu_torch.io.prefetch import NativeSensReader
+from ra_slam_tpu_torch.io.sens import write_sens
+from ra_slam_tpu_torch.utils.data_logger import FrameLogger
+write_sens(os.path.join(out, "s.sens"), [fr.rgb], [(fr.depth * 1000).astype(np.uint16)], [np.eye(4, dtype=np.float32)],
+           np.array([[80.0, 0, 79.5], [0, 80.0, 59.5], [0, 0, 1]], np.float32))
+assert [f.frame_id for f in NativeSensReader(os.path.join(out, "s.sens")).prefetch(2, 2)] == [0]
+lg = FrameLogger(os.path.join(out, "log"))
+assert lg.log_frame(0, fr.rgb, fr.depth, ht=fr.ht, lt=fr.lt)
+lg.close()
 for mod in pkgutil.walk_packages(ra_slam_tpu_torch.__path__, "ra_slam_tpu_torch."):
     importlib.import_module(mod.name)
 leaked = [m for m in sys.modules if m == "ra_slam_tpu" or m.startswith("ra_slam_tpu.")]
@@ -136,7 +157,9 @@ def test_port_imports_without_jax_yaml_cv2():
     from a checkpoint the port saves and fused by the CLI; three are tracked
     with loop closing off and three with it on; the facade tracks one
     frame, fuses it at the tracked pose, renders and meshes it, and the
-    viewer renders its checkpoint: with jax, flax, yaml, cv2, PIL and
+    viewer renders its checkpoint; a rectifier reads `calib_to_yaml`'s
+    text and rectifies a pair, dense stereo runs on it, a `.sens` file
+    is prefetched and a frame logged: with jax, flax, yaml, cv2, PIL and
     msgpack unavailable and no ra_slam_tpu module loaded (the port needs
     none of them on the machine with the GPU)."""
     env = dict(os.environ, PYTHONPATH=REPO)

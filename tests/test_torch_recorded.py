@@ -68,9 +68,9 @@ def test_folder_cli_matches_jax(tmp_path, monkeypatch, maps, frames):
         assert (rows[:, 4] == 0.5).all()  # equal all-ones maps leave every voxel's prob at 0.5
 
 
-def test_sens_cli_matches_jax(tmp_path, monkeypatch):
-    """`--sens` on a JAX-written file with PNG colour at twice the depth
-    size (resized to it on read) and zlib depth."""
+def _jax_sens(tmp_path):
+    """A JAX-written `.sens` of 3 orbit frames: PNG colour at twice the
+    depth size, zlib depth."""
     ds, frames = _orbit()
     c = tp.CAM_KW
     big = SyntheticBoxDataset(num_frames=120, cam=SyntheticCameraSpec(
@@ -82,10 +82,27 @@ def test_sens_cli_matches_jax(tmp_path, monkeypatch):
                      [np.clip(f.depth * 1000.0, 0, 65535).astype(np.uint16) for f in frames],
                      [np.linalg.inv(f.cam_T_world.astype(np.float64)).astype(np.float32) for f in frames],
                      k, color_compression=jsens.COLOR_PNG)
-    r, _ = _run_both(tmp_path, monkeypatch, ["--sens", path, "--max-frames", "2"])
+    return path
+
+
+def test_sens_cli_matches_jax(tmp_path, monkeypatch):
+    """`--sens` on a JAX-written file with PNG colour at twice the depth
+    size (resized to it on read) and zlib depth."""
+    r, _ = _run_both(tmp_path, monkeypatch, ["--sens", _jax_sens(tmp_path), "--max-frames", "2"])
     assert r["frames"] == 2
 
 
-def test_native_io_raises():
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        port_cli.main(["--sens", "unused.sens", "--native-io", "--device", "cpu"])
+def test_native_io_matches_plain_sens(tmp_path):
+    """`--sens --native-io` (frames decoded ahead by two threads,
+    io/prefetch.py) dumps the same map as `--sens`, byte for byte."""
+    path = _jax_sens(tmp_path)
+    runs = {}
+    for name, extra in (("plain", []), ("native", ["--native-io"])):
+        out = tmp_path / name
+        r = port_cli.main(["--sens", path, "--max-frames", "3", "--device", "cpu", "--download", str(out)]
+                          + SMALL + extra)
+        runs[name] = (r, (out / "tsdf.bin").read_bytes(), (out / "mesh_indices.bin").read_bytes())
+    (rp, tp_, mp), (rn, tn, mn) = runs["plain"], runs["native"]
+    for key in ("frames", "num_active", "tsdf_rows", "mesh_vertices", "mesh_triangles"):
+        assert rn[key] == rp[key], key
+    assert rn["frames"] == 3 and tn == tp_ and mn == mp
