@@ -102,7 +102,8 @@ prints its wall time:
      scripts/score_torch_semantic.py --weights (2D high-touch and voxel
      IoU above 0.9), and one float32 step (TF32 off) on the card and on
      the CPU from the same parameters and batch, each gradient within
-     1e-2 of its tensor's largest |g|;
+     TRAIN_GRAD_TOL of its tensor's largest |g|, while the same step's
+     gradients with cuDNN's TF32 on (the control) must exceed it;
  12. dense stereo (features/stereo.py) at the ZED's 672x376, D = 64, on a
      synthetic pair: card against CPU (valid equal where no out-of-range
      cost reaches the decision, depth within 1e-6), coverage of the
@@ -113,9 +114,13 @@ prints its wall time:
  14. `live.run` with fake cameras on the card for 60 frames: rectified
      672x376 pairs feed the tracking thread, the left image with its
      dense stereo depth (io/cameras.py:ZedDepthCamera) the mapping
-     thread; both threads reach 60 frames, ATE <= 0.05 m, >= 30 frames
-     fused without allocation failure, a preview PNG decodes, both
-     kernels launched; f/s per thread and where each thread's time goes;
+     thread, which segments it with the default-width UNet (random
+     weights, from a checkpoint the port saves) outside the facade's lock
+     while the tracking thread works; both threads reach 60 frames, ATE
+     <= 0.05 m, >= 30 frames fused without allocation failure, the UNet
+     run on every fused frame with its high-touch maps and the fused
+     voxels' probabilities in [0, 1], a preview PNG decodes, both kernels
+     launched; f/s per thread and where each thread's time goes;
  15. `offline_eval --sens --native-io` over 3e's file (run inside 3e's
      phase): the same tsdf.bin as 3e's run, byte for byte; f/s beside
      3e's;
@@ -169,8 +174,10 @@ RESCORE_TOL = 0.005  # the re-scored IoUs, card against the CPU
 TRAIN_FIRST_TOL, TRAIN_LAST_BOUND, TRAIN_IOU_BOUND = 0.01, 0.1, 0.9
 # one float32 training step, card vs CPU (TF32 off): the largest gradient
 # difference over the tensor's largest |g|; sums of ~3e5 float32 terms in
-# other orders, the conv biases' mostly cancelling
-TRAIN_GRAD_TOL = 1e-2
+# other orders, the conv biases' mostly cancelling. The control, the same
+# step on the card with cuDNN's TF32 on, must land above the bound
+# (measured on the H100: 2.76e-4 with TF32 off, 1.17e-2 with it on).
+TRAIN_GRAD_TOL = 1e-3
 # phases 12-14: the ZED's VGA eye size and a rectified focal length like
 # the ZED-like calibration's (350.12 px)
 ZED_VGA, ZED_FX = (672, 376), 350.0
@@ -973,7 +980,7 @@ def phase_training(dev, card):
     scripts/score_torch_semantic.py --weights; one float32 training step
     (TF32 off) on the card and on the CPU from the same parameters and
     batch, the gradients compared per tensor."""
-    from ra_slam_tpu_torch.models.segmentation import make_train_step
+    from ra_slam_tpu_torch.models.segmentation import make_train_step, masked_cross_entropy
 
     trainer, scorer = _load_script("train_torch_semantic"), _load_script("score_torch_semantic")
     with tempfile.TemporaryDirectory() as tmp:
@@ -989,9 +996,18 @@ def phase_training(dev, card):
         step = make_train_step(net, torch.optim.Adam(net.parameters(), lr=trainer.LR))
         losses[str(d)] = float(step(torch.as_tensor(x, device=d), torch.as_tensor(y, device=d)))
         grads[str(d)] = {n: p.grad.detach().cpu() for n, p in net.named_parameters()}
-    rel = {n: float((grads[str(dev)][n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
-           for n, g in grads["cpu"].items()}
-    worst = max(rel, key=rel.get)
+    # the control: the same gradients on the card with cuDNN's TF32 on
+    net = trainer.load_net(trainer.INIT, dtype=torch.float32).to(dev)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        masked_cross_entropy(net(torch.as_tensor(x, device=dev)), torch.as_tensor(y, device=dev)).backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    grads["tf32"] = {n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+    rel, rel_tf32 = ({n: float((grads[k][n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                      for n, g in grads["cpu"].items()} for k in (str(dev), "tf32"))
+    worst, worst_tf32 = max(rel, key=rel.get), max(rel_tf32, key=rel_tf32.get)
     print(
         f"training (scripts/train_torch_semantic.py, (16, 32, 64) net from the committed JAX init, "
         f"{r['train_steps']} Adam steps of batch {trainer.BATCH} at 256x320, bf16 forward): loss {first:.4f} -> "
@@ -1003,7 +1019,9 @@ def phase_training(dev, card):
         f"SEMANTIC_r05.json {SEMANTIC_R05['iou_2d_high_touch']} / {SEMANTIC_R05['iou_2d_low_touch']} / "
         f"{SEMANTIC_R05['voxel_iou_high_touch']}); one float32 step card vs CPU (TF32 off): loss "
         f"{losses[str(dev)]:.7f} / {losses['cpu']:.7f}, gradient max |diff| / the tensor's max |g|: worst "
-        f"{worst} {rel[worst]:.3g} (bound {TRAIN_GRAD_TOL}), per tensor {json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})}; {card}"
+        f"{worst} {rel[worst]:.3g} (bound {TRAIN_GRAD_TOL}), per tensor {json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})}; "
+        f"control with cuDNN's TF32 on: worst {worst_tf32} {rel_tf32[worst_tf32]:.3g} (must exceed the bound), "
+        f"per tensor {json.dumps({k: float(f'{v:.3g}') for k, v in rel_tf32.items()})}; {card}"
     )
     if not (abs(first - 0.6504) <= TRAIN_FIRST_TOL and last < TRAIN_LAST_BOUND):
         raise AssertionError(f"training loss {first} -> {last}")
@@ -1011,6 +1029,8 @@ def phase_training(dev, card):
         raise AssertionError(f"card-trained weights score {sc}")
     if not rel[worst] <= TRAIN_GRAD_TOL:
         raise AssertionError(f"training gradients card vs CPU: {worst} {rel[worst]}")
+    if not rel_tf32[worst_tf32] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"the TF32 control is within the bound ({rel_tf32[worst_tf32]}): the gate cannot see TF32")
 
 
 def _stereo_rig():
@@ -1159,7 +1179,7 @@ class _FakeZedStream:
     along tests/test_live.py's path, rendered and put through the
     rectifier as ZedNativeCamera does."""
 
-    def __init__(self, rectifier, *args):
+    def __init__(self, rectifier):
         self.rectifier, self.i, self.times, self.poses = rectifier, 0, [], {}
 
     def get_stereo_frame(self):
@@ -1183,14 +1203,9 @@ class _FakeRgbdFromZed:
     overlaps tracking."""
 
     def __init__(self, system, rectifier, fxb, dev):
-        from ra_slam_tpu_torch.io import cameras
+        from ra_slam_tpu_torch.io.cameras import ZedDepthCamera
 
-        saved = cameras.ZedNativeCamera
-        cameras.ZedNativeCamera = _FakeZedStream
-        try:
-            self.zed = cameras.ZedDepthCamera(rectifier, fxb, max_disparity=DENSE_D, device=dev)
-        finally:
-            cameras.ZedNativeCamera = saved
+        self.zed = ZedDepthCamera(rectifier, fxb, max_disparity=DENSE_D, device=dev, cam=_FakeZedStream(rectifier))
         self.system, self.times = system, []
 
     def get_rgbd_frame(self):
@@ -1205,12 +1220,14 @@ class _FakeRgbdFromZed:
 
 def phase_live(dev, card):
     """14: `live.run` on the card with fake cameras: the stereo thread
-    tracks rectified VGA pairs, the mapping thread fuses the left image
+    tracks rectified VGA pairs, the mapping thread segments the left image
+    with the default-width UNet (live.main's --model path) and fuses it
     with its dense stereo depth at the tracked poses."""
     from ra_slam_tpu_torch.core.config import FeatureConfig, SystemConfig, TrackingConfig, TsdfConfig
     from ra_slam_tpu_torch.core.rectify import CalibMono, CalibStereo, StereoRectifier, rewrite_camera_config
     from ra_slam_tpu_torch.eval.ate import ate_rmse
     from ra_slam_tpu_torch.io.png import read_png
+    from ra_slam_tpu_torch.models.segmentation import InferenceEngine
     from ra_slam_tpu_torch.ops import hamming, tsdf_fuse
     from ra_slam_tpu_torch.pipeline import live
     from ra_slam_tpu_torch.pipeline.system import RaSlamSystem
@@ -1225,22 +1242,40 @@ def phase_live(dev, card):
         feature=FeatureConfig(max_num_keypoints=1000, num_levels=3),
         tracking=TrackingConfig(min_inliers=10, match_radius=30.0).scaled(w / 240),
     ), rectifier)
-    system = RaSlamSystem(cfg, dev, segmentation_model=None)
-    stereo = _FakeZedStream(rectifier)
-    rgbd = _FakeRgbdFromZed(system, rectifier, cfg.camera.focal_x_baseline, dev)
-    torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory() as tmp, _Timed(system, "feed_stereo_frame", False) as feed_s, \
-            _Timed(system, "feed_rgbd_frame", False) as feed_r, _Timed(stereo, "get_stereo_frame", False) as get_s, \
-            _Timed(rgbd, "get_rgbd_frame", False) as get_r:
-        tsdf_fuse.LAUNCHES = hamming.LAUNCHES = 0
-        t0 = time.perf_counter()
-        n_prev, n_slam, n_tsdf = live.run(system, stereo, rgbd, out_dir=tmp, render_every_s=2.0,
-                                          stop_after_frames=LIVE_FRAMES)
-        wall = time.perf_counter() - t0
-        fuse_launches, ham_launches = tsdf_fuse.LAUNCHES, hamming.LAUNCHES
-        pngs = sorted(f for f in os.listdir(tmp) if f.startswith("live_"))
-        shapes = [read_png(os.path.join(tmp, f)).shape for f in pngs]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, out = os.path.join(tmp, "seg.msgpack"), os.path.join(tmp, "previews")
+        InferenceEngine("__random__", w, h, device=dev).save(ckpt)
+        system = RaSlamSystem(cfg, dev, segmentation_model=ckpt)
+        ranges, segment = [], system.seg.segment
+
+        def segment_spy(rgb):  # the maps' (min, max), read after the run
+            ht, lt = segment(rgb)
+            ranges.append(torch.stack([ht.min(), ht.max(), lt.min(), lt.max()]))
+            return ht, lt
+
+        system.seg.segment = segment_spy
+        stereo = _FakeZedStream(rectifier)
+        rgbd = _FakeRgbdFromZed(system, rectifier, cfg.camera.focal_x_baseline, dev)
+        torch.cuda.reset_peak_memory_stats()
+        with _Timed(system, "feed_stereo_frame", False) as feed_s, _Timed(system, "feed_rgbd_frame", False) as feed_r, \
+                _Timed(stereo, "get_stereo_frame", False) as get_s, _Timed(rgbd, "get_rgbd_frame", False) as get_r, \
+                _Timed(system.seg, "segment", True) as segm:
+            tsdf_fuse.LAUNCHES = hamming.LAUNCHES = 0
+            t0 = time.perf_counter()
+            n_prev, n_slam, n_tsdf = live.run(system, stereo, rgbd, out_dir=out, render_every_s=2.0,
+                                              stop_after_frames=LIVE_FRAMES)
+            wall = time.perf_counter() - t0
+            fuse_launches, ham_launches = tsdf_fuse.LAUNCHES, hamming.LAUNCHES
+        del system.seg.segment
+        pngs = sorted(f for f in os.listdir(out) if f.startswith("live_"))
+        shapes = [read_png(os.path.join(out, f)).shape for f in pngs]
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    seg_ms = segm.ms()
+    ranges = torch.stack(ranges).cpu().numpy() if ranges else np.zeros((0, 4), np.float32)
+    probs = system.semantic_voxels()[:, 4]
+    maps_ok = bool(len(ranges) and np.isfinite(ranges).all() and ranges[:, [0, 2]].min() >= 0.0
+                   and ranges[:, [1, 3]].max() <= 1.0)
+    probs_ok = bool(len(probs) and np.isfinite(probs).all() and probs.min() >= 0.0 and probs.max() <= 1.0)
     est = system.slam.trajectory()
     ate = ate_rmse(est, sorted(stereo.poses.items()))
     rate = lambda ts: (len(ts) - 1) / (ts[-1] - ts[0]) if len(ts) > 1 else 0.0
@@ -1254,7 +1289,11 @@ def phase_live(dev, card):
         f"(host clock, median): tracking thread camera {float(np.median(get_s.ms())):.1f} ms (render, rectify) + "
         f"feed_stereo_frame {float(np.median(feed_s.ms())):.1f} ms, mapping thread camera "
         f"{float(np.median(get_r.ms()[1:])):.1f} ms (render, rectify, dense stereo) + feed_rgbd_frame "
-        f"{float(np.median(feed_r.ms())):.1f} ms; "
+        f"{float(np.median(feed_r.ms())):.1f} ms (of which the UNet's segment, CUDA events, median "
+        f"{float(np.median(seg_ms)) if seg_ms else float('nan'):.3f} ms, {len(seg_ms)} calls); high-touch maps in "
+        f"[{ranges[:, 0].min() if len(ranges) else float('nan'):.4f}, "
+        f"{ranges[:, 1].max() if len(ranges) else float('nan'):.4f}], {len(probs)} fused voxels' prob in "
+        f"[{probs.min() if len(probs) else float('nan'):.4f}, {probs.max() if len(probs) else float('nan'):.4f}]; "
         f"{fuse_launches} fuse and {ham_launches} Hamming launches; peak device memory {peak_gb:.2f} GiB; {card}"
     )
     if not (n_slam >= LIVE_FRAMES and n_tsdf >= LIVE_FRAMES):
@@ -1265,6 +1304,9 @@ def phase_live(dev, card):
         raise AssertionError(f"live: {system.num_integrated} fused, {alloc_failures} allocation failures")
     if not (pngs and shapes[0] == (h, w, 4)):
         raise AssertionError(f"live: previews {pngs} {shapes}")
+    if not (len(seg_ms) >= system.num_integrated and maps_ok and probs_ok):
+        raise AssertionError(f"live: {len(seg_ms)} UNet calls for {system.num_integrated} fused frames, "
+                             f"maps in [0, 1]: {maps_ok}, fused probabilities in [0, 1]: {probs_ok}")
     if not (ham_launches >= LIVE_FRAMES and fuse_launches >= system.num_integrated):
         raise AssertionError(f"live: {ham_launches} Hamming, {fuse_launches} fuse launches")
     return fuse_launches, ham_launches

@@ -105,17 +105,19 @@ class ZedNativeCamera:
 class ZedDepthCamera:
     """ZED-SDK-style stereo RGB-D: raw UVC stereo capture and dense census
     disparity on `device`, returning (stereo pair, RGB-D frame) like
-    `ZED::GetStereoAndRGBDFrame`."""
+    `ZED::GetStereoAndRGBDFrame`. `cam` is the rectified stereo source
+    (anything with `get_stereo_frame()` and `close()`); by default a
+    `ZedNativeCamera` opened with the other arguments."""
 
     def __init__(self, rectifier, focal_x_baseline: float, device_id: int = 0, width: int = 1344,
                  height: int = 376, fps: int = 60, max_disparity: int = 64, max_depth: float = 10.0,
-                 device="cuda"):
+                 device="cuda", cam=None):
         from ra_slam_tpu_torch.pipeline.system import resolve_device
 
         self.device = resolve_device(device)  # raises for cuda without a card, before the camera opens
         self.focal_x_baseline = focal_x_baseline
         self.max_disparity, self.max_depth = max_disparity, max_depth
-        self.cam = ZedNativeCamera(rectifier, device_id, width, height, fps)
+        self.cam = cam if cam is not None else ZedNativeCamera(rectifier, device_id, width, height, fps)
 
     def depth(self, left_rgb: np.ndarray, right_rgb: np.ndarray) -> np.ndarray:
         """[H, W] float32 depth in meters (0 where invalid) of a rectified

@@ -1,59 +1,20 @@
-"""Threaded `.sens` decoding and a drop-on-overrun byte queue
-(counterpart of `ra_slam_tpu/native/__init__.py`, without its C++
-runtime: no g++ build, no libjpeg).
+"""A drop-on-overrun byte queue (counterpart of the `ByteQueue` of
+`ra_slam_tpu/native/__init__.py`, without its C++ runtime: no g++ build).
 
-- `NativeSensReader`: `SensReader`'s frames (the target size defaults to
-  the depth size), read with `os.pread` so that threads share the file,
-  plus `prefetch(num_threads, capacity)`, which yields the frames in
-  order while up to `capacity` of them are decoded ahead by
-  `num_threads` Python threads. zlib, the PNG decoder's numpy work and
-  nvjpeg release the interpreter lock for most of their time.
-- `ByteQueue`: `runtime.cc`'s bounded byte queue (the data logger / TSDF
-  feed-queue semantics): a push to a full queue drops the item and counts
-  it, a push to a closed one drops it uncounted, and neither blocks;
-  `pop(timeout)` returns None on timeout and raises `StopIteration` once
-  the queue is closed and drained.
+`ByteQueue` has `runtime.cc`'s bounded byte-queue semantics (the data
+logger / TSDF feed queue): a push to a full queue drops the item and
+counts it, a push to a closed one drops it uncounted, and neither blocks;
+`pop(timeout)` returns None on timeout and raises `StopIteration` once
+the queue is closed and drained. The threaded `.sens` decoding of the
+JAX package's native runtime is `SensReader.prefetch` (`io/sens.py`).
 """
 
 from __future__ import annotations
 
 import collections
-import os
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
-
-from ra_slam_tpu_torch.io.dataset import Frame
-from ra_slam_tpu_torch.io.sens import SensReader
-
-
-class NativeSensReader(SensReader):
-    """A `.sens` reader whose frames can be decoded ahead by threads."""
-
-    def _blob(self, ofs: int, nbytes: int) -> bytes:
-        buf = os.pread(self._f.fileno(), nbytes, ofs)  # no shared file position
-        if len(buf) != nbytes:
-            raise EOFError(f"truncated .sens file: wanted {nbytes} bytes, got {len(buf)}")
-        return buf
-
-    def prefetch(self, num_threads: int = 2, capacity: int = 8) -> Iterator[Frame]:
-        """Iterate the frames in order, decoded ahead by `num_threads`
-        threads, at most `capacity` frames in flight."""
-        if num_threads < 1 or capacity < 1:
-            raise ValueError(f"prefetch needs num_threads >= 1 and capacity >= 1, got {num_threads}, {capacity}")
-        pending: collections.deque = collections.deque()
-        with ThreadPoolExecutor(num_threads, thread_name_prefix="sens_prefetch") as pool:
-            try:
-                for idx in range(len(self)):
-                    pending.append(pool.submit(self.frame, idx))
-                    if len(pending) >= capacity:
-                        yield pending.popleft().result()
-                while pending:
-                    yield pending.popleft().result()
-            finally:
-                for fut in pending:
-                    fut.cancel()
+from typing import Optional
 
 
 class ByteQueue:

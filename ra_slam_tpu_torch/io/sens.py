@@ -23,13 +23,22 @@ intrinsics rescaled), and the stored camera-to-world pose is inverted in
 float64 to cam_T_world. PNG colour decodes through `io/png.py`, JPEG
 colour through `io/jpeg.py` (nvjpeg on a CUDA device; without one a
 JPEG `.sens` raises), the resizes through `ops/resize.py` on the CPU.
+
+Blobs are read with `os.pread`, which moves no shared file position, so
+`prefetch(num_threads, capacity)` can decode frames ahead in Python
+threads and yield them in order (`offline_eval --native-io`, the JAX
+package's C++ prefetcher): zlib, the PNG decoder's numpy work and nvjpeg
+release the interpreter lock for most of their time.
 """
 
 from __future__ import annotations
 
+import collections
+import os
 import struct
 import zlib
-from typing import BinaryIO, List, Optional, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import BinaryIO, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -118,8 +127,10 @@ class SensReader(RGBDDataset):
         return np.linalg.inv(self._poses[idx].astype(np.float64)).astype(np.float32)
 
     def _blob(self, ofs: int, nbytes: int) -> bytes:
-        self._f.seek(ofs)
-        return _read_exact(self._f, nbytes)
+        buf = os.pread(self._f.fileno(), nbytes, ofs)  # no shared file position: threads may share the file
+        if len(buf) != nbytes:
+            raise EOFError(f"truncated .sens file: wanted {nbytes} bytes, got {len(buf)}")
+        return buf
 
     def _raw_color(self, idx: int) -> np.ndarray:
         ofs, nbytes, _, _ = self._blob_ofs[idx]
@@ -158,6 +169,24 @@ class SensReader(RGBDDataset):
             depth=depth_raw.astype(np.float32) / self.depth_shift,
             cam_T_world=self.pose(idx),
         )
+
+    def prefetch(self, num_threads: int = 2, capacity: int = 8) -> Iterator[Frame]:
+        """Iterate the frames in order, decoded ahead by `num_threads`
+        threads, at most `capacity` frames in flight."""
+        if num_threads < 1 or capacity < 1:
+            raise ValueError(f"prefetch needs num_threads >= 1 and capacity >= 1, got {num_threads}, {capacity}")
+        pending: collections.deque = collections.deque()
+        with ThreadPoolExecutor(num_threads, thread_name_prefix="sens_prefetch") as pool:
+            try:
+                for idx in range(len(self)):
+                    pending.append(pool.submit(self.frame, idx))
+                    if len(pending) >= capacity:
+                        yield pending.popleft().result()
+                while pending:
+                    yield pending.popleft().result()
+            finally:
+                for fut in pending:
+                    fut.cancel()
 
     def close(self) -> None:
         self._f.close()

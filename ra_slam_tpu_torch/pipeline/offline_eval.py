@@ -22,7 +22,7 @@ result keys, ATE/RPE of the tracked trajectory included.
     python -m ra_slam_tpu_torch.pipeline.offline_eval --folder capture/ \\
         --model seg.msgpack --download out/
 
-`--native-io` reads a `--sens` file through `io/prefetch.py`: two
+`--native-io` reads a `--sens` file through `SensReader.prefetch`: two
 Python threads decode up to eight frames ahead of the device (the JAX
 package's C++ decoder and prefetcher).
 """
@@ -64,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trajectory-out", default=None,
                    help="save the (SLAM) trajectory in id + 3x4 format")
     p.add_argument("--native-io", action="store_true",
-                   help="decode --sens frames ahead in two threads (io/prefetch.py)")
+                   help="decode --sens frames ahead in two threads (SensReader.prefetch)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the map (cuda runs the CUDA fuse kernel)")
     return p
@@ -72,10 +72,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def load_dataset(args):
     if args.sens:
-        if args.native_io:
-            from ra_slam_tpu_torch.io.prefetch import NativeSensReader
-
-            return NativeSensReader(args.sens)
         from ra_slam_tpu_torch.io.sens import SensReader
 
         return SensReader(args.sens)

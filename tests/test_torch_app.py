@@ -3,8 +3,8 @@
 PNGs through io/png.py) against the JAX package's (cv2), the ZED
 calibration tooling (io/capture.py) against the JAX package's text, the
 camera drivers' refusals (io/cameras.py), and the threaded `.sens`
-prefetcher and byte queue (io/prefetch.py) with tests/test_native.py's
-semantics."""
+prefetcher (`SensReader.prefetch`, io/sens.py) and byte queue
+(io/prefetch.py) with tests/test_native.py's semantics."""
 
 import os
 import sys
@@ -21,7 +21,7 @@ from ra_slam_tpu.io import capture as jcapture
 from ra_slam_tpu.utils.data_logger import FrameLogger as JaxFrameLogger
 from ra_slam_tpu_torch.io import cameras, capture
 from ra_slam_tpu_torch.io.folder import FolderReader
-from ra_slam_tpu_torch.io.prefetch import ByteQueue, NativeSensReader
+from ra_slam_tpu_torch.io.prefetch import ByteQueue
 from ra_slam_tpu_torch.io.sens import SensReader, write_sens
 from ra_slam_tpu_torch.utils import profiling
 from ra_slam_tpu_torch.utils.data_logger import AsyncLogger, FrameLogger
@@ -140,8 +140,10 @@ def sens_path(tmp_path):
 
 @pytest.mark.parametrize("num_threads,capacity", [(3, 2), (2, 8), (1, 1)])
 def test_prefetch_ordered_and_equal(sens_path, num_threads, capacity):
-    plain, nat = SensReader(sens_path), NativeSensReader(sens_path)
-    assert len(nat) == 5 and nat.depth_factor == plain.depth_factor and nat.camera == plain.camera
+    """Frames decoded ahead by threads sharing one reader come in order,
+    equal to another reader's `frame(i)`."""
+    plain, nat = SensReader(sens_path), SensReader(sens_path)
+    assert len(nat) == 5
     seen = list(nat.prefetch(num_threads=num_threads, capacity=capacity))
     assert [f.frame_id for f in seen] == [0, 1, 2, 3, 4]
     for i, f in enumerate(seen):

@@ -330,9 +330,13 @@ def test_remap_cuda_matches_cpu(cuda):
 def test_train_step_cuda_matches_cpu(cuda):
     """One float32 training step (TF32 off) of a (16, 32) net on the card
     and on the CPU from the same parameters and batch: the loss within
-    1e-5 and each gradient within 1e-2 of its tensor's largest |g|
-    (chip_smoke.py phase 11's bound)."""
-    from ra_slam_tpu_torch.models.segmentation import SegmentationNet, init_params_, make_train_step
+    1e-5 and each gradient within 1e-4 of its tensor's largest |g|, while
+    the same gradients with cuDNN's TF32 on (the control) land above
+    that bound somewhere. Measured on the H100: 8.2e-6 with TF32 off,
+    8.2e-4 for the control (at this size the sums are shorter than in
+    chip_smoke.py phase 11, whose bound is 1e-3)."""
+    from ra_slam_tpu_torch.models.segmentation import (SegmentationNet, init_params_, make_train_step,
+                                                       masked_cross_entropy)
 
     rng = np.random.default_rng(0)
     x = rng.random((2, 3, 64, 96), dtype=np.float32)
@@ -340,14 +344,30 @@ def test_train_step_cuda_matches_cpu(cuda):
     ref = SegmentationNet((16, 32), dtype=torch.float32)
     init_params_(ref, torch.Generator().manual_seed(0))
     out = {}
-    for dev in ("cpu", cuda):
+    for dev in ("cpu", cuda, "tf32"):
         net = SegmentationNet((16, 32), dtype=torch.float32)
         net.load_state_dict(ref.state_dict())
-        net.to(dev)
-        step = make_train_step(net, torch.optim.Adam(net.parameters(), lr=3e-4))
-        loss = float(step(torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)))
+        d = cuda if dev == "tf32" else dev
+        net.to(d)
+        xd, yd = torch.as_tensor(x, device=d), torch.as_tensor(y, device=d)
+        if dev == "tf32":
+            saved = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                loss = masked_cross_entropy(net(xd), yd)
+                loss.backward()
+            finally:
+                torch.backends.cudnn.allow_tf32 = saved
+            loss = float(loss.detach())
+        else:
+            step = make_train_step(net, torch.optim.Adam(net.parameters(), lr=3e-4))
+            loss = float(step(xd, yd))
         out[str(dev)] = loss, {n: p.grad.cpu() for n, p in net.named_parameters()}
-    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    (lc, gc), (lg, gg), (_, gt) = out["cpu"], out[str(cuda)], out["tf32"]
+    rel = {k: {n: float((gk[n] - g).abs().max() / g.abs().max()) for n, g in gc.items()}
+           for k, gk in (("card", gg), ("tf32", gt))}
+    print(f"card vs CPU worst {max(rel['card'].values()):.3g}, TF32 control worst {max(rel['tf32'].values()):.3g}")
     assert abs(lc - lg) <= 1e-5
-    for n, g in gc.items():
-        assert (gg[n] - g).abs().max() <= 1e-2 * g.abs().max(), n
+    for n, err in rel["card"].items():
+        assert err <= 1e-4, (n, err)
+    assert max(rel["tf32"].values()) > 1e-4, rel["tf32"]

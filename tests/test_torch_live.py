@@ -74,9 +74,8 @@ class _FakeZed:
         self.closed = True
 
 
-def test_zed_depth_camera_computes_dense_depth(monkeypatch):
-    monkeypatch.setattr(cameras, "ZedNativeCamera", _FakeZed)
-    cam = cameras.ZedDepthCamera(None, FXB, max_disparity=32, device="cpu")
+def test_zed_depth_camera_computes_dense_depth():
+    cam = cameras.ZedDepthCamera(None, FXB, max_disparity=32, device="cpu", cam=_FakeZed())
     (left, right, ts), (rgb, depth, ts2) = cam.get_stereo_and_rgbd_frame()
     assert ts == ts2 and rgb is left and depth.dtype == np.float32 and depth.shape == left.shape[:2]
     g = lambda a: rgb_to_gray(torch.as_tensor(a))
@@ -89,9 +88,8 @@ def test_zed_depth_camera_computes_dense_depth(monkeypatch):
 
 def test_zed_depth_camera_cuda_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(cameras, "ZedNativeCamera", _FakeZed)
     with pytest.raises(RuntimeError, match="cuda"):
-        cameras.ZedDepthCamera(None, FXB)
+        cameras.ZedDepthCamera(None, FXB, cam=_FakeZed())
 
 
 def test_main_wires_config_rectifier_and_device(tmp_path, monkeypatch, capsys):

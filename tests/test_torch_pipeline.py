@@ -133,12 +133,13 @@ rect = StereoRectifier.from_yaml(os.path.join(out, "calib.yaml"), device="cpu")
 left, right = rect.rectify(fr.rgb, ds.frame(1).rgb)
 g = lambda a: rgb_to_gray(__import__("torch").as_tensor(a))
 assert dense_stereo_depth(g(left), g(right), rect.focal_x_baseline, max_disparity=16)[0].shape == (120, 160)
-from ra_slam_tpu_torch.io.prefetch import NativeSensReader
-from ra_slam_tpu_torch.io.sens import write_sens
+from ra_slam_tpu_torch.io.prefetch import ByteQueue
+from ra_slam_tpu_torch.io.sens import SensReader, write_sens
 from ra_slam_tpu_torch.utils.data_logger import FrameLogger
 write_sens(os.path.join(out, "s.sens"), [fr.rgb], [(fr.depth * 1000).astype(np.uint16)], [np.eye(4, dtype=np.float32)],
            np.array([[80.0, 0, 79.5], [0, 80.0, 59.5], [0, 0, 1]], np.float32))
-assert [f.frame_id for f in NativeSensReader(os.path.join(out, "s.sens")).prefetch(2, 2)] == [0]
+assert [f.frame_id for f in SensReader(os.path.join(out, "s.sens")).prefetch(2, 2)] == [0]
+assert ByteQueue(1).push(b"x")
 lg = FrameLogger(os.path.join(out, "log"))
 assert lg.log_frame(0, fr.rgb, fr.depth, ht=fr.ht, lt=fr.lt)
 lg.close()

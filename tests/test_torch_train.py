@@ -9,11 +9,12 @@ side runs op by op (`jax.disable_jit()`).
 Bounds. Float32 compute: the loss within 1e-5 and every gradient within
 1e-4 of its tensor's largest |g| (the same function summed in other
 orders; measured 6e-8 and 4.7e-6). bf16 compute (the default): each
-convolution rounds its output to bf16 after summing in its own order,
-and a conv bias's gradient is a bf16 sum over 4096 pixels that mostly
-cancel, so gradients are held to a measured 0.5 of the tensor's largest
-|g| (0.395 on a conv bias, at most 0.084 on a kernel) and the loss to
-1e-3 (4.1e-5). Adam divides by sqrt(v) + 1e-8, so a gradient
+convolution rounds its output to bf16 after summing in its own order.
+The bias of a conv that feeds a GroupNorm has a gradient that is a bf16
+sum over 4096 pixels that mostly cancel (the norm removes the group's
+mean), so those tensors are held to 0.5 of their largest |g| (measured
+at most 0.395); every other tensor, the kernels included, to 0.15
+(measured at most 0.084, on a kernel); the loss to 1e-3 (4.1e-5). Adam divides by sqrt(v) + 1e-8, so a gradient
 that is analytically zero (the bias of a conv feeding a GroupNorm of one
 channel per group, `features <= 8`) but holds float noise of ~1e-9 moves
 its parameter by about +-lr whatever its sign: after three steps the
@@ -81,15 +82,22 @@ def _rel_grad_err(jnet, params, tnet, x, y):
     return float(jl), tl, errs
 
 
-@pytest.mark.parametrize("dtype,loss_tol,grad_tol", [(torch.float32, 1e-5, 1e-4), (torch.bfloat16, 1e-3, 0.5)],
+def _cancelling(name):
+    """The bias of a conv that feeds a GroupNorm (`*.convs.<i>.bias`)."""
+    return ".convs." in name and name.endswith(".bias")
+
+
+@pytest.mark.parametrize("dtype,loss_tol,grad_tol,cancel_tol",
+                         [(torch.float32, 1e-5, 1e-4, 1e-4), (torch.bfloat16, 1e-3, 0.15, 0.5)],
                          ids=["float32", "bf16"])
-def test_one_step_gradients_match_jax(dtype, loss_tol, grad_tol):
+def test_one_step_gradients_match_jax(dtype, loss_tol, grad_tol, cancel_tol):
     jnet, params, tnet = _nets(dtype)
     x, y = _batch()
     jl, tl, errs = _rel_grad_err(jnet, params, tnet, x, y)
     assert abs(jl - tl) <= loss_tol, (jl, tl)
-    worst = max(errs, key=errs.get)
-    assert errs[worst] <= grad_tol, (worst, errs[worst], errs)
+    assert any(map(_cancelling, errs)) and not all(map(_cancelling, errs))
+    for name, err in errs.items():
+        assert err <= (cancel_tol if _cancelling(name) else grad_tol), (name, err, errs)
 
 
 def test_adam_steps_match_optax():
