@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Run from the root of the repository. Ten phases, two of the map
-readers (3b, 3c), the recorded-data path (2b, 3d-3h), training (11) and
-the live robot path (12-15), none of whose failures is caught; each
-prints its wall time:
+readers (3b, 3c), the recorded-data path (2b, 3d-3h), training (11),
+the live robot path (12-15), and the parallel layer, JPEG encoding and
+the EVAL rows (16-20), none of whose failures is caught; each prints its
+wall time:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      the builds of the CUDA kernels from csrc/ (the fuse kernel and the
@@ -124,10 +125,39 @@ prints its wall time:
  15. `offline_eval --sens --native-io` over 3e's file (run inside 3e's
      phase): the same tsdf.bin as 3e's run, byte for byte; f/s beside
      3e's;
+ 16. sharded fusion: 4 `LocalMesh` hash shards on the card fuse the main
+     path's 60 frames (its map configuration): num_active equal to the
+     single map's on the card, no allocation failure, the shards' union
+     (keys, tsdf, weight, rgb, prob) within SHARD_TOL of the single map;
+     `LocalMesh(1)` and `ProcessGroupMesh` over NCCL at world size 1 the
+     same map bit for bit; the fuse kernel at one shard's shape against
+     its plain version (times, bound); then 4 slab shards, meshed by
+     `extract_mesh_sharded` in both modes against the gathered map's
+     `extract_mesh` (triangle counts equal, centroids within 1 mm both
+     ways, nothing dropped) with the peak blocks per shard; f/s, fuse
+     launches, peak memory;
+ 17. distributed BA (inside phase 7's slot, on phase 6's system):
+     `solve_window_distributed` over 4 shards on tests/test_dist_ba.py's
+     window against `solve_window` on the card (poses 1e-3, points
+     5e-3) and against itself on the CPU (DEV_VS_CPU_TOL, phase 7's
+     bound; `solve_window`'s own card-vs-CPU difference beside it), the
+     time of each; `refine_map` over `LocalMesh(2)`: finite, rmse_after <=
+     rmse_before + 0.5;
+ 18. `bench_scaling` on the card at 1, 2 and 4 shards at the headline
+     scale (1 cm, 2^17 blocks, 2^19 slots, 24 frames), its JSON lines;
+ 19. JPEG: 20 orbit frames encoded by nvjpeg and by cv2 at quality 95,
+     both decoded by nvjpeg: PSNR within JPEG_PSNR_DB of each other;
+     `write_sens(COLOR_JPEG)` on the card read back by `SensReader`:
+     depth exact, colour within the same bound;
+ 20. the EVAL matrix's seed-0 rows (hardened scene, 150 VGA frames) loop
+     on and off: >= 1 closure loop on, ATE loop on below loop off, the
+     lost frames and closures of the JAX package as it stands and each
+     ATE within EVAL_ATE_TOL of its (EVAL_JAX_SEED0; `EVAL_r05.json`'s
+     older rows printed beside);
  10. a JSON line of the kernels' numbers (launches summed over every
-     path, 3d, 3e, 14 and 15 included; times, bound and library time at
-     the main path's shapes: the fuse kernel at frame 10, the Hamming
-     kernel at the tracking shape), then the result line.
+     path, 3d, 3e, 14-16, 18 and 20 included; times, bound and library
+     time at the main path's shapes: the fuse kernel at frame 10, the
+     Hamming kernel at the tracking shape), then the result line.
 
 It exits non-zero, printing no result, when torch sees no CUDA device
 or when the package is not beside it.
@@ -182,6 +212,29 @@ TRAIN_GRAD_TOL = 1e-3
 # the ZED-like calibration's (350.12 px)
 ZED_VGA, ZED_FX = (672, 376), 350.0
 DENSE_D = 64  # io/cameras.py's max_disparity
+SHARDS = 4  # phases 16 and 17: LocalMesh shards on the one card
+SHARD_FRAMES = 60  # phase 16: the main path's frames, sharded
+# phase 16: the shards' union against the single map (each voxel's
+# update is the same operations on the same pixel, wherever it lives)
+SHARD_TOL = 1e-5
+# phase 17: the distributed solve card vs CPU (TF32 off) is held to
+# phase 7's DEV_VS_CPU_TOL: 8 GN iterations from a 7 px start, summed in
+# other orders, leave ~1.5e-5 m on points at 3-6 m (measured on the H100;
+# solve_window's own card-vs-CPU difference on the window is printed)
+# phase 18: scripts/gen_scaling.py's headline scale
+SCALING_ARGS = ["--voxel-size", "0.01", "--log2-blocks", "17", "--log2-hash", "19", "--frames", "24"]
+JPEG_FRAMES = 20  # phase 19
+JPEG_PSNR_DB = 1.0  # nvjpeg's PSNR against cv2's at quality 95
+# phase 20: the EVAL matrix's seed-0 rows, loop on / off. EVAL_r05.json
+# records the JAX package as it stood in round 5 (ATE 0.0090 / 0.0134 m,
+# no frame lost); the JAX package as it stands, whose ORB detection and
+# tracking step changed after that file, loses frame 116 on this scene
+# and gives the rows below (scripts/eval_matrix_jax.py on a CPU), which
+# the port is held to
+EVAL_R05_ATE = {True: 0.0090, False: 0.0134}
+EVAL_JAX_SEED0 = {True: {"ate_rmse_m": 0.0112, "lost_frames": 1, "loop_closures": 4},
+                  False: {"ate_rmse_m": 0.0159, "lost_frames": 1, "loop_closures": 0}}
+EVAL_ATE_TOL = 0.002
 # dense stereo card vs CPU: `valid` may differ only where a sentinel cost
 # (1e9, summed in another order) reaches the decision, left of column
 # 2 D + 8; depth is the same float32 division where both are valid
@@ -310,7 +363,6 @@ def _payload_copy(m):
 def phase_kernel_vs_plain(dev, card):
     from ra_slam_tpu_torch.core.se3 import SE3
     from ra_slam_tpu_torch.map import voxel_map as vm
-    from ra_slam_tpu_torch.ops import tsdf_fuse
     from ra_slam_tpu_torch.pipeline import offline_eval
 
     args = offline_eval.build_parser().parse_args(["--synthetic"])
@@ -330,8 +382,23 @@ def phase_kernel_vs_plain(dev, card):
         vm.integrate_frame(m, rgb, depth, ht, lt, cam, pose, cfg, alloc_stride=stride)
 
     rgb, depth, ht, lt, pose = frame(FRAMES_BEFORE)
+    return _fuse_kernel_numbers(m, cfg, cam, (rgb, depth, ht, lt, pose),
+                                lambda: vm.allocate_from_depth(m, depth, cam, pose, cfg, stride),
+                                f"frame {FRAMES_BEFORE}", card)
+
+
+def _fuse_kernel_numbers(m, cfg, cam, frame_args, allocate, label, card):
+    """One more frame into map `m`: `allocate()`, cull and prep, then
+    the fuse kernel against its plain version from the same state
+    (fields within TOL, the same carve releases), their cold-L2 times,
+    the kernel's bound and share of it, then the frame's carve. Returns
+    the kernels line's numbers."""
+    from ra_slam_tpu_torch.map import voxel_map as vm
+    from ra_slam_tpu_torch.ops import tsdf_fuse
+
+    rgb, depth, ht, lt, pose = frame_args
     H, W = depth.shape
-    _, t_alloc = _event_ms(lambda: vm.allocate_from_depth(m, depth, cam, pose, cfg, stride))
+    _, t_alloc = _event_ms(allocate)
     (vis_idx, vis_mask, count), t_cull = _event_ms(lambda: vm.visible_blocks(m, cam, pose, cfg))
     (pix, z, d2r, gate), t_prep = _event_ms(
         lambda: vm.integrate_prep(m, vis_idx, vis_mask, H, W, cam, pose, cfg)
@@ -378,7 +445,7 @@ def phase_kernel_vs_plain(dev, card):
     ops = n_vis * 512 * FUSE_OPS_PER_VOXEL + updated * FUSE_OPS_PER_UPDATE
     bound_ms, bound_by = _bound(min_bytes, ops, F32_FLOPS_PER_S)
     print(
-        f"tsdf_fuse at frame {FRAMES_BEFORE}: {n_vis} visible blocks ({n_vis * 512} voxels, "
+        f"tsdf_fuse at {label}: {n_vis} visible blocks ({n_vis * 512} voxels, "
         f"{int(rel_k.sum())} released, {updated} voxels updated), each call after a "
         f"{L2_FLUSH_BYTES >> 20} MiB L2 flush: per call (median of {REPEATS}, CUDA events, index "
         f"validation included): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; device time per call "
@@ -1633,6 +1700,339 @@ def phase_stereo(dev, card):
     return launches
 
 
+def _all_fields_equal(a, b) -> bool:
+    return torch.equal(a.table.key, b.table.key) and torch.equal(a.table.value, b.table.value) and all(
+        torch.equal(getattr(a, f.name), getattr(b, f.name))
+        for f in dataclasses.fields(a) if f.name != "table")
+
+
+def _active_rows(maps):
+    """(sorted keys, fields) of the active blocks of `maps` together."""
+    keys = torch.cat([m.block_key[m.active] for m in maps])
+    order = torch.argsort(keys)
+    fields = {f: torch.cat([getattr(m, f)[m.active] for m in maps])[order]
+              for f in ("tsdf", "weight", "rgb", "prob")}
+    return keys[order], fields
+
+
+def phase_sharded_fusion(dev, card):
+    """16: the main path's fusion over 4 LocalMesh shards on the card."""
+    from scipy.spatial import cKDTree
+    import torch.distributed as dist
+
+    from ra_slam_tpu_torch.core.se3 import SE3
+    from ra_slam_tpu_torch.map import voxel_map as vm
+    from ra_slam_tpu_torch.map.blocks import INVALID_KEY, owner_of
+    from ra_slam_tpu_torch.map.meshing import extract_mesh
+    from ra_slam_tpu_torch.ops import tsdf_fuse
+    from ra_slam_tpu_torch.parallel import (LocalMesh, ProcessGroupMesh, create_sharded_map, local_config,
+                                            make_gather_shards, make_sharded_integrate_step)
+    from ra_slam_tpu_torch.parallel.sharded_map import extract_mesh_sharded
+    from ra_slam_tpu_torch.pipeline import offline_eval
+    from ra_slam_tpu_torch.pipeline.bench_scaling import free_port
+
+    args = offline_eval.build_parser().parse_args(["--synthetic"])
+    ds = offline_eval.load_dataset(args)
+    cfg = offline_eval.system_config(ds.camera, args).tsdf
+    cam = ds.camera
+
+    def frame(i):
+        f = ds.frame(i)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        return t(f.rgb), t(f.depth), t(f.ht), t(f.lt), cam, SE3.from_matrix(t(f.cam_T_world))
+
+    frames = [frame(i) for i in range(SHARD_FRAMES)]
+
+    def fuse(mesh, **kw):
+        shards = create_sharded_map(cfg, mesh)
+        step = make_sharded_integrate_step(mesh, cfg, alloc_stride=2, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fr in frames:
+            shards, stats = step(shards, *fr)
+        torch.cuda.synchronize()
+        return shards, {k: int(v) for k, v in stats.items()}, len(frames) / (time.perf_counter() - t0)
+
+    single = vm.create_map(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fr in frames:
+        _, st1 = vm.integrate_frame(single, *fr, cfg, alloc_stride=2)
+    torch.cuda.synchronize()
+    fps_single = len(frames) / (time.perf_counter() - t0)
+    n_single = int(st1["num_active"])
+
+    mesh = LocalMesh(SHARDS, dev)
+    torch.cuda.reset_peak_memory_stats()
+    tsdf_fuse.LAUNCHES = 0
+    shards, st, fps = fuse(mesh)
+    launches = tsdf_fuse.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    keys_s, rows_s = _active_rows(shards)
+    keys_1, rows_1 = _active_rows([single])
+    err = {f: (rows_s[f] - rows_1[f]).abs().max().item() for f in rows_s} if torch.equal(keys_s, keys_1) else None
+    print(
+        f"sharded fusion, {SHARDS} hash shards on one card ({local_config(cfg, SHARDS).num_blocks} blocks, "
+        f"{local_config(cfg, SHARDS).max_visible_blocks} visible each), {SHARD_FRAMES} VGA frames: "
+        f"{st['num_active']} active blocks (single map {n_single}), {st['num_visible']} visible at the last "
+        f"frame, alloc_failures {st['alloc_failures']}; union vs the single map: keys equal "
+        f"{err is not None}, max |diff| {json.dumps(err)} (bound {SHARD_TOL}); {fps:.2f} fused frames/s "
+        f"(single map {fps_single:.2f}), {launches} fuse launches, peak device memory {peak_gb:.2f} GiB; {card}"
+    )
+    if st["num_active"] != n_single or st["alloc_failures"] != 0:
+        raise AssertionError(f"sharded fusion: {st}, single map {n_single} active")
+    if err is None or not max(err.values()) <= SHARD_TOL:
+        raise AssertionError(f"the shards' union differs from the single map: {err}")
+    if launches < SHARDS * SHARD_FRAMES:
+        raise AssertionError(f"sharded fusion launched the fuse kernel {launches} times")
+
+    # one shard, in process and over NCCL at world size 1: the same map
+    one, st_one, fps_one = fuse(LocalMesh(1, dev))
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        pg, st_pg, fps_pg = fuse(ProcessGroupMesh())
+    finally:
+        dist.destroy_process_group()
+    same = _all_fields_equal(one[0], pg[0]) and st_one == st_pg
+    print(f"one shard: LocalMesh(1) {fps_one:.2f} f/s, ProcessGroupMesh over NCCL (world size 1) {fps_pg:.2f} "
+          f"f/s, the same map bit for bit: {same}; the same as the single map: "
+          f"{_all_fields_equal(one[0], single)}; {card}")
+    if not same:
+        raise AssertionError("LocalMesh(1) and ProcessGroupMesh over NCCL fused different maps")
+    del one, pg
+
+    # the fuse kernel at one shard's shape: shard 0 takes frame 60
+    lcfg = local_config(cfg, SHARDS)
+    rgb, depth, ht, lt, _, pose = frame(SHARD_FRAMES)
+
+    def allocate():
+        keys = vm.depth_to_candidate_keys(depth, cam, pose, lcfg, 2)
+        vm.allocate_keys(shards[0], torch.where(owner_of(keys, SHARDS) == 0, keys, INVALID_KEY))
+
+    numbers = _fuse_kernel_numbers(shards[0], lcfg, cam, (rgb, depth, ht, lt, pose), allocate,
+                                   f"shard 0 of {SHARDS} (frame {SHARD_FRAMES})", card)
+    del shards, single
+
+    # slab shards: the halo export against the gathered map's mesh
+    tsdf_fuse.LAUNCHES = 0
+    slab, st_s, fps_s = fuse(mesh, owner_mode="slab", cell_log2=1)
+    launches += tsdf_fuse.LAUNCHES
+    g, dropped = make_gather_shards(mesh, cfg)[0](slab)
+    t0 = time.perf_counter()
+    vg, tg, _ = extract_mesh(g, cfg)
+    t_gathered = time.perf_counter() - t0
+    del g
+    tree_g = cKDTree(vg[tg].mean(axis=1))
+    for mode in ("parallel", "sequential"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        v, t_, _, info = extract_mesh_sharded(slab, mesh, cfg, cell_log2=1, mode=mode)
+        wall = time.perf_counter() - t0
+        mesh_gb = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+        c_s = v[t_].mean(axis=1)
+        d_sg = tree_g.query(c_s, workers=-1)[0].max() if len(t_) else float("inf")
+        d_gs = cKDTree(c_s).query(vg[tg].mean(axis=1), workers=-1)[0].max() if len(t_) else float("inf")
+        print(
+            f"slab shards ({SHARDS}, cell 2 blocks; {st_s['num_active']} active, {fps_s:.2f} fused f/s), "
+            f"extract_mesh_sharded {mode}: {len(t_)} triangles (gathered map {len(tg)}), centroid distances "
+            f"{d_sg:.2e} / {d_gs:.2e} m, stats {json.dumps(info)}, peak blocks per shard "
+            f"{info['peak_blocks_per_shard']} = {info['peak_blocks_per_shard'] / st_s['num_active']:.3f} of the "
+            f"map; {wall:.3f} s wall (gathered map's extract_mesh {t_gathered:.3f} s), peak device memory "
+            f"above the shards {mesh_gb:.2f} GiB; {card}"
+        )
+        if len(t_) != len(tg) or info["dropped"] != 0 or int(dropped) != 0 or not (d_sg < 1e-3 and d_gs < 1e-3):
+            raise AssertionError(f"sharded mesh {mode}: {len(t_)} vs {len(tg)} triangles, {info}, {d_sg}, {d_gs}")
+    return launches, numbers
+
+
+def _ba_problem(device):
+    """tests/test_ba.py's problem (6 keyframes on a sideways track, 120
+    points at 3-6 m, 200 px focal length at 320x240) perturbed as its
+    `_perturb` does (poses 0.02, points 0.05), in the port's types."""
+    from ra_slam_tpu_torch.core.camera import PinholeCamera
+    from ra_slam_tpu_torch.core.se3 import SE3, exp_se3
+    from ra_slam_tpu_torch.slam.keyframes import create_keyframes, insert_keyframe
+    from ra_slam_tpu_torch.slam.landmarks import create_landmarks
+
+    num_kf, num_pts, F = 6, 120, 160
+    cam = PinholeCamera.create(200.0, 200.0, 159.5, 119.5, 320, 240)
+    rng = np.random.default_rng(0)
+    pts = np.stack([rng.uniform(-2.0, 2.0, num_pts), rng.uniform(-1.5, 1.5, num_pts),
+                    rng.uniform(3.0, 6.0, num_pts)], axis=-1).astype(np.float32)
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt)
+    kfs = create_keyframes(16, F, "cpu")
+    lms = create_landmarks(1024, "cpu")
+    lms = dataclasses.replace(lms, pos=lms.pos.index_copy(0, torch.arange(num_pts), t(pts)),
+                              valid=lms.valid.index_fill(0, torch.arange(num_pts), True))
+    obs_lm = t(np.r_[np.arange(num_pts), -np.ones(F - num_pts)], torch.int32)
+    for k in range(num_kf):
+        pose = exp_se3(t([0, 0.03 * k, 0, 0.15 * k, 0, 0]))
+        uv, z = cam.project(pose.apply(t(pts)))
+        w = (z > 0).float() * cam.in_bounds(uv).float()
+        kfs = insert_keyframe(kfs, t(k, torch.int32), pose, t(k, torch.int32), t(k / 30.0),
+                              obs_lm, torch.cat([uv, torch.zeros(F - num_pts, 2)]),
+                              torch.cat([w, torch.zeros(F - num_pts)]), torch.zeros(F, 8, dtype=torch.int32))
+    rng = np.random.default_rng(1)
+    R, tr = kfs.R.clone(), kfs.t.clone()
+    for k in range(1, num_kf):
+        noisy = exp_se3(t(rng.normal(0, 0.02, 6))) @ SE3(kfs.R[k], kfs.t[k])
+        R[k], tr[k] = noisy.R, noisy.t
+    kfs = dataclasses.replace(kfs, R=R, t=tr)
+    lms = dataclasses.replace(lms, pos=lms.pos.index_add(0, torch.arange(num_pts),
+                                                         t(rng.normal(0, 0.05, (num_pts, 3)))))
+    on = lambda x: dataclasses.replace(x, **{f.name: getattr(x, f.name).to(device) for f in dataclasses.fields(x)})
+    return cam, on(kfs), on(lms), num_kf
+
+
+def phase_dist_ba(dev, slam, card):
+    """17: the distributed Schur solver on 4 LocalMesh shards on the
+    card, then `refine_map` over a 2-shard mesh on phase 6's system."""
+    from ra_slam_tpu_torch.parallel import LocalMesh, solve_window_distributed
+    from ra_slam_tpu_torch.slam.ba import gather_window, solve_window
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        cam, kfs, lms, num_kf = _ba_problem(d)
+        win = gather_window(kfs, lms, num_kf, 8, 256)
+        mesh = LocalMesh(SHARDS, d, axis="ba")
+        out[d.type] = (win, solve_window(win, cam, iterations=8),
+                       solve_window_distributed(win, cam, mesh, iterations=8))
+    win, (p1, x1, s1), (pd, xd, sd) = out["cuda"]
+    _, (p1c, x1c, _), (pc, xc, sc) = out["cpu"]
+    ok = win.point_ok
+    diff = lambda a, b: (a.cpu() - b.cpu()).abs().max().item()
+    err_single = {"poses_t": diff(pd.t, p1.t), "points": diff(xd[ok], x1[ok])}
+    err_cpu = {"poses_R": diff(pd.R, pc.R), "poses_t": diff(pd.t, pc.t), "points": diff(xd[ok], xc[ok.cpu()])}
+    err_single_cpu = {"poses_t": diff(p1.t, p1c.t), "points": diff(x1[ok], x1c[ok.cpu()])}
+    mesh = LocalMesh(SHARDS, dev, axis="ba")
+    single_ms = _median_ms(lambda: solve_window(win, cam, iterations=8))
+    dist_ms = _median_ms(lambda: solve_window_distributed(win, cam, mesh, iterations=8))
+    print(
+        f"distributed BA ({SHARDS} shards, window 8, 256 points, {int(sd.num_obs)} observations): rmse "
+        f"{float(sd.rmse_before):.4f} -> {float(sd.rmse_after):.6f} px (solve_window {float(s1.rmse_after):.6f}); "
+        f"vs solve_window on the card max |diff| {json.dumps(err_single)} (bounds 1e-3 poses, 5e-3 points); "
+        f"card vs CPU {json.dumps(err_cpu)} (bound {DEV_VS_CPU_TOL}; solve_window card vs CPU "
+        f"{json.dumps(err_single_cpu)}); per call (median of {REPEATS}, CUDA "
+        f"events): solve_window {single_ms:.3f} ms, solve_window_distributed {dist_ms:.3f} ms; {card}"
+    )
+    if not (err_single["poses_t"] <= 1e-3 and err_single["points"] <= 5e-3):
+        raise AssertionError(f"distributed BA vs solve_window: {err_single}")
+    if not max(err_cpu.values()) <= DEV_VS_CPU_TOL:
+        raise AssertionError(f"distributed BA card vs CPU: {err_cpu}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = slam.refine_map(mesh=LocalMesh(2, dev, axis="ba"))
+    print(f"refine_map over LocalMesh(2) on phase 6's map ({int(slam.state.track.kf_counter)} keyframes): "
+          f"{json.dumps(r)}, {time.perf_counter() - t0:.2f} s; {card}")
+    if not (np.isfinite(r["rmse_after"]) and r["rmse_after"] <= r["rmse_before"] + 0.5 and r["windows"] >= 1):
+        raise AssertionError(f"refine_map over a mesh: {r}")
+
+
+def phase_scaling(card):
+    """18: bench_scaling on the card at 1, 2 and 4 shards."""
+    from ra_slam_tpu_torch.ops import tsdf_fuse
+    from ra_slam_tpu_torch.pipeline import bench_scaling
+
+    tsdf_fuse.LAUNCHES = 0
+    rows = [bench_scaling.run(["--devices", str(k), "--device", "cuda"] + SCALING_ARGS) for k in (1, 2, 4)]
+    launches = tsdf_fuse.LAUNCHES
+    print(f"bench_scaling at 1/2/4 shards: {[r['value'] for r in rows]} fused f/s, efficiencies "
+          f"{[r.get('scaling_efficiency') for r in rows]}, {launches} fuse launches; {card}")
+    if not all(r["value"] > 0 for r in rows) or launches < 24 * (1 + 2 + 4):
+        raise AssertionError(f"bench_scaling: {rows}, {launches} launches")
+    return launches
+
+
+def _psnr(a, b) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0**2 / max(mse, 1e-12)))
+
+
+def phase_jpeg(dev, card):
+    """19: nvjpeg's encoder against cv2's at quality 95, and a JPEG
+    `.sens` written on the card read back."""
+    import cv2
+
+    from ra_slam_tpu_torch.io import sens
+    from ra_slam_tpu_torch.io.jpeg import decode_jpeg, encode_jpeg
+    from ra_slam_tpu_torch.pipeline import offline_eval
+
+    ds = offline_eval.load_dataset(offline_eval.build_parser().parse_args(["--synthetic"]))
+    idx = list(range(0, 120, 120 // JPEG_FRAMES))[:JPEG_FRAMES]
+    rgbs = [np.asarray(ds.frame(i).rgb).clip(0, 255).round().astype(np.uint8) for i in idx]
+    depths = [np.round(np.asarray(ds.frame(i).depth) * 1000.0).astype(np.uint16) for i in idx]
+    p_nv, p_cv, t_nv, t_cv, b_nv, b_cv = [], [], [], [], [], []
+    for rgb in rgbs:
+        t0 = time.perf_counter()
+        nv = encode_jpeg(rgb, 95, dev)
+        t_nv.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ok, enc = cv2.imencode(".jpg", cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR), [cv2.IMWRITE_JPEG_QUALITY, 95])
+        t_cv.append(time.perf_counter() - t0)
+        assert ok
+        p_nv.append(_psnr(decode_jpeg(nv, dev).cpu().numpy(), rgb))
+        p_cv.append(_psnr(decode_jpeg(enc.tobytes(), dev).cpu().numpy(), rgb))
+        b_nv.append(len(nv))
+        b_cv.append(len(enc))
+    gap = max(abs(a - b) for a, b in zip(p_nv, p_cv))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "jpeg.sens")
+        k = np.array([[320.0, 0, 319.5], [0, 320.0, 239.5], [0, 0, 1]], np.float32)
+        t0 = time.perf_counter()
+        sens.write_sens(path, rgbs, depths, [np.eye(4, dtype=np.float32)] * len(rgbs), k,
+                        color_compression=sens.COLOR_JPEG, device=dev)
+        t_write = time.perf_counter() - t0
+        r = sens.SensReader(path)
+        depth_exact = all(np.array_equal(r._raw_depth(i), d) for i, d in enumerate(depths))
+        p_sens = [_psnr(r.frame(i).rgb, rgb) for i, rgb in enumerate(rgbs)]
+        r.close()
+    print(
+        f"JPEG at quality 95, {len(rgbs)} VGA orbit frames: PSNR nvjpeg {np.mean(p_nv):.3f} dB (min "
+        f"{min(p_nv):.3f}), cv2 {np.mean(p_cv):.3f} dB (min {min(p_cv):.3f}), largest gap {gap:.3f} dB (bound "
+        f"{JPEG_PSNR_DB}); bytes per frame nvjpeg {np.mean(b_nv):.0f}, cv2 {np.mean(b_cv):.0f}; encode per frame "
+        f"(host clock, median) nvjpeg {1e3 * np.median(t_nv):.3f} ms (upload and download included), cv2 "
+        f"{1e3 * np.median(t_cv):.3f} ms; write_sens(COLOR_JPEG) {t_write:.2f} s, read back: depth exact "
+        f"{depth_exact}, colour PSNR min {min(p_sens):.3f} dB; {card}"
+    )
+    if not gap <= JPEG_PSNR_DB:
+        raise AssertionError(f"nvjpeg's PSNR is {gap} dB from cv2's")
+    if not depth_exact or not all(p >= c - JPEG_PSNR_DB for p, c in zip(p_sens, p_cv)):
+        raise AssertionError(f"JPEG .sens round trip: depth exact {depth_exact}, PSNR {p_sens}")
+
+
+def phase_eval_rows(card):
+    """20: the EVAL matrix's seed-0 baseline pair on the card."""
+    from ra_slam_tpu_torch.eval.trajectory_bench import run_trajectory_eval
+    from ra_slam_tpu_torch.ops import hamming
+
+    ev = _load_script("gen_eval_torch")
+    hamming.LAUNCHES = 0
+    rows = {}
+    for loop in (True, False):
+        rows[loop] = run_trajectory_eval(n_frames=ev.N_FRAMES, width=ev.W, height=ev.H, scene_kw=ev.HARD, seed=0,
+                                         loop_closure=loop, device="cuda")
+        r = rows[loop]
+        print(f"EVAL seed 0, loop {'on' if loop else 'off'}: ATE {r['ate_rmse_m']} m (the JAX package "
+              f"{json.dumps(EVAL_JAX_SEED0[loop])}; EVAL_r05.json {EVAL_R05_ATE[loop]}, 0 lost), lost "
+              f"{r['lost_frames']}, closures {r['loop_closures']}, relocalizations {r['relocalizations']}, "
+              f"keyframes {r['keyframes']}, {r['steady_state_fps']} tracked f/s; {card}")
+    launches = hamming.LAUNCHES
+    on, off = rows[True], rows[False]
+    if on["loop_closures"] < 1 or not on["ate_rmse_m"] < off["ate_rmse_m"]:
+        raise AssertionError(f"EVAL seed 0: loop on {on}, loop off {off}")
+    for loop, r in rows.items():
+        want = EVAL_JAX_SEED0[loop]
+        if (r["lost_frames"], r["loop_closures"]) != (want["lost_frames"], want["loop_closures"]) or not abs(
+                r["ate_rmse_m"] - want["ate_rmse_m"]) <= EVAL_ATE_TOL:
+            raise AssertionError(f"EVAL seed 0 loop {loop}: {r} vs the JAX package's {want}")
+    if launches < 2 * ev.N_FRAMES:
+        raise AssertionError(f"the EVAL rows launched the Hamming kernel {launches} times")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -1679,14 +2079,20 @@ def main():
     ham_launches, ate_loop_off = phase("5", phase_tracking_path, card)
     loop_launches, slam = phase("6", phase_loop_tracking, card, ate_loop_off)
     phase("7", phase_ba_pgo_device_vs_cpu, slam, card)
+    phase("17", phase_dist_ba, dev, slam, card)
     del slam
     full_fuse, full_ham = phase("8", phase_full_system, card)
     stereo_launches = phase("9", phase_stereo, dev, card)
     phase("12", phase_dense_stereo, dev, card)
     phase("13", phase_rectify, dev, card)
     live_fuse, live_ham = phase("14", phase_live, dev, card)
-    launches += full_fuse + live_fuse
-    ham_launches += loop_launches + full_ham + stereo_launches + live_ham
+    shard_fuse, shard_numbers = phase("16", phase_sharded_fusion, dev, card)
+    scaling_fuse = phase("18", phase_scaling, card)
+    phase("19", phase_jpeg, dev, card)
+    eval_ham = phase("20", phase_eval_rows, card)
+    launches += full_fuse + live_fuse + shard_fuse + scaling_fuse
+    ham_launches += loop_launches + full_ham + stereo_launches + live_ham + eval_ham
+    print(f"the fuse kernel at one shard's shape (phase 16): {json.dumps(shard_numbers)}")
 
     print(card)
     print(json.dumps({"kernels": [{

@@ -23,6 +23,8 @@ intrinsics rescaled), and the stored camera-to-world pose is inverted in
 float64 to cam_T_world. PNG colour decodes through `io/png.py`, JPEG
 colour through `io/jpeg.py` (nvjpeg on a CUDA device; without one a
 JPEG `.sens` raises), the resizes through `ops/resize.py` on the CPU.
+`write_sens` encodes PNG colour through `io/png.py` and JPEG colour
+through nvjpeg on a CUDA device.
 
 Blobs are read with `os.pread`, which moves no shared file position, so
 `prefetch(num_threads, capacity)` can decode frames ahead in Python
@@ -34,6 +36,7 @@ release the interpreter lock for most of their time.
 from __future__ import annotations
 
 import collections
+import functools
 import os
 import struct
 import zlib
@@ -202,14 +205,20 @@ def write_sens(
     sensor_name: str = "ra_slam_tpu",
     timestamps_us: Optional[Sequence[int]] = None,
     color_compression: int = COLOR_PNG,
+    device="cuda",
 ) -> None:
-    """Write a version-4 `.sens` file with PNG colour and zlib depth.
-    JPEG colour needs an encoder, and none is bound: asking for it
-    raises."""
+    """Write a version-4 `.sens` file with zlib depth and PNG colour, or
+    JPEG colour (quality 95, 4:2:0, as the JAX writer's cv2) encoded by
+    nvjpeg on `device`. PNG is the default here (the JAX writer's is
+    JPEG): the CPU has no JPEG encoder, and JPEG on a CPU device raises."""
+    if color_compression not in (COLOR_PNG, COLOR_JPEG):
+        raise ValueError("color_compression must be COLOR_PNG or COLOR_JPEG")
     if color_compression == COLOR_JPEG:
-        raise NotImplementedError("no JPEG encoder is bound; write PNG colour (COLOR_PNG)")
-    if color_compression != COLOR_PNG:
-        raise ValueError("color_compression must be COLOR_PNG")
+        from ra_slam_tpu_torch.io.jpeg import encode_jpeg, encoder_device
+
+        encode = functools.partial(encode_jpeg, quality=95, device=encoder_device(device))
+    else:
+        encode = encode_png
     k4 = np.eye(4, dtype=np.float32)
     intrinsic = np.asarray(intrinsic, np.float32)
     k4[: intrinsic.shape[0], : intrinsic.shape[1]] = intrinsic
@@ -227,7 +236,7 @@ def write_sens(
         f.write(struct.pack("<f", float(depth_shift)))
         f.write(struct.pack("<Q", len(rgbs)))
         for i, (rgb, d, c2w) in enumerate(zip(rgbs, depths_raw, camera_to_world)):
-            color_blob = encode_png(np.asarray(rgb, np.uint8))
+            color_blob = encode(np.asarray(rgb, np.uint8))
             depth_blob = zlib.compress(np.ascontiguousarray(d, "<u2").tobytes(), 6)
             ts = int(timestamps_us[i]) if timestamps_us is not None else i * 33333
             f.write(_FRAME_HDR.pack(*np.asarray(c2w, np.float32).reshape(-1).tolist(),

@@ -20,6 +20,7 @@ KEY_MASK = (1 << KEY_BITS) - 1
 INVALID_KEY = 0x7FFFFFFF
 
 _FIB = 2654435769  # Fibonacci hashing multiplier, 2^32 / golden ratio
+_OWNER_MUL = 2246822519  # shard-owner multiplier, independent of _FIB
 
 
 def pack_block_coords(coords: torch.Tensor) -> torch.Tensor:
@@ -48,6 +49,31 @@ def hash_key(key: torch.Tensor, log2_size: int) -> torch.Tensor:
     k = key.to(torch.int64) & 0xFFFFFFFF
     h = (k * _FIB) & 0xFFFFFFFF
     return (h >> (32 - log2_size)).to(torch.int32)
+
+
+def owner_of(key: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """int32 key -> owning shard in [0, n_shards) for map sharding. Uses
+    another multiplier than `hash_key`, so that the keys of one shard
+    spread over its whole local table. The JAX package's uint32
+    multiply, xor-shift and modulo, computed in int64 masked to 32 bits."""
+    if n_shards == 1:
+        return torch.zeros_like(key)
+    h = ((key.to(torch.int64) & 0xFFFFFFFF) * _OWNER_MUL) & 0xFFFFFFFF
+    h = h ^ (h >> 15)
+    return (h % n_shards).to(torch.int32)
+
+
+def owner_slab(key: torch.Tensor, n_shards: int, cell_log2: int = 2) -> torch.Tensor:
+    """Spatially coherent owner: round-robin x-slabs of 2^cell_log2
+    blocks, owner = (bx >> cell_log2) mod n, with an arithmetic shift
+    and a floor modulo (`torch.remainder`), so that negative bx wrap as
+    in the JAX package. A block's 2x2x2 corner neighbourhood then
+    crosses at most one slab boundary, in +x: every remote block a shard
+    needs is a left-edge block (bx = 0 mod 2^c) of the next shard."""
+    if n_shards == 1:
+        return torch.zeros_like(key)
+    bx = unpack_block_coords(key)[..., 0]
+    return torch.remainder(bx >> cell_log2, n_shards).to(torch.int32)
 
 
 def voxel_offsets(device) -> torch.Tensor:

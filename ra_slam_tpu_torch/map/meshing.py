@@ -278,15 +278,22 @@ def extract_mesh(
         n += cnt
         if w is not None and n <= max_tris:
             parts.append(w)
-    if n == 0:
-        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32), np.zeros((0,), np.float32)
     if n > max_tris:
         raise ValueError(
             f"mesh overflow: map surface has {n} triangles > "
             f"max_tris={max_tris}; raise the budget or raise min_weight"
         )
+    return _mesh_arrays(parts, cfg.voxel_size)
+
+
+def _mesh_arrays(parts, voxel_size: float) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Merge, number and quantize the vertex words of the chunks' parts
+    (`_emit_chunk` outputs in stream order); numpy (vertices, indices
+    without the degenerate triangles, vertex probs)."""
+    if not parts:
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32), np.zeros((0,), np.float32)
     hi, lo, aux = (torch.cat([p[i] for p in parts]).reshape(-1) for i in range(3))
-    idx, xq, yq, zq, pq, aabb_lo, aabb_scale = _dedup(hi, lo, aux, cfg.voxel_size)
+    idx, xq, yq, zq, pq, aabb_lo, aabb_scale = _dedup(hi, lo, aux, voxel_size)
 
     indices = idx.to(torch.int32).reshape(-1, 3).cpu().numpy()
     lo_h = aabb_lo.cpu().numpy()
@@ -302,6 +309,26 @@ def extract_mesh(
         & (indices[:, 0] != indices[:, 2])
     )
     return vertices, indices[nondeg], probs
+
+
+def emit_budgeted(m: VoxelMap, min_weight: float, chunk: int, c_max: int, cap: int):
+    """The triangles of the map's active blocks in stream order, under a
+    per-chunk budget `c_max` and a total budget `cap`: the emission of
+    the JAX package's in-program sharded export (`_emit_all_scan`). A
+    chunk keeps its first min(count, c_max) triangles while the total
+    stays within `cap`; what is cut is counted, never dropped silently.
+
+    Returns (parts for `_mesh_arrays`, triangles kept, triangles cut)."""
+    order = torch.nonzero(m.active).squeeze(1)
+    parts, kept_total, cut = [], 0, 0
+    for s in range(0, order.shape[0], chunk):
+        cnt, words = _emit_chunk(m, order[s:s + chunk], min_weight, words=True)
+        kept = max(min(cnt, c_max, cap - kept_total), 0)
+        if kept:
+            parts.append(tuple(w[:kept] for w in words))
+        kept_total += kept
+        cut += cnt - kept
+    return parts, kept_total, cut
 
 
 def save_mesh(

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -34,6 +35,8 @@ NVCC_FLAGS = (
 
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}  # name -> seconds nvcc took in this process
+_LOCKS = {}  # name -> lock: threads of one process build a library once
+_LOCKS_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -63,6 +66,15 @@ def load_library(name: str) -> ctypes.CDLL:
     `build.log` beside the library."""
     if name in _LIBS:
         return _LIBS[name]
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        if name not in _LIBS:
+            _LIBS[name] = _build(name)
+    return _LIBS[name]
+
+
+def _build(name: str) -> ctypes.CDLL:
     out_dir = library_dir(name)
     so = out_dir / f"lib{name}.so"
     if not so.exists():
@@ -78,5 +90,4 @@ def load_library(name: str) -> ctypes.CDLL:
         (out_dir / "build.log").write_text(r.stdout + r.stderr)
         os.replace(tmp, so)  # atomic: a concurrent process sees a whole file
         BUILD_SECONDS[name] = time.perf_counter() - t0
-    _LIBS[name] = ctypes.CDLL(str(so))
-    return _LIBS[name]
+    return ctypes.CDLL(str(so))

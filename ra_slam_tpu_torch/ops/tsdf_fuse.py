@@ -18,6 +18,7 @@ to the other.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -26,6 +27,7 @@ from ra_slam_tpu_torch.ops._build import load_library
 VOXELS = 512
 
 LAUNCHES = 0  # kernel launches made by tsdf_fuse_ (CUDA path only)
+_COUNT_LOCK = threading.Lock()  # the shards of a LocalMesh launch from threads
 
 
 def tsdf_fuse_reference(
@@ -180,5 +182,6 @@ def tsdf_fuse_(m, vis_idx, vis_mask, img6, pix, z, d2r, gate, cfg) -> torch.Tens
         )
     if rc != 0:
         raise RuntimeError(f"tsdf_fuse_ kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return minabs

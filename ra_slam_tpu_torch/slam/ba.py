@@ -220,65 +220,97 @@ def _block_diag(blocks: torch.Tensor) -> torch.Tensor:
     return torch.einsum("kab,kj->kajb", blocks, torch.eye(W, dtype=blocks.dtype, device=blocks.device))
 
 
-def _gn_step(poses: SE3, points: torch.Tensor, obs_w: torch.Tensor, win: BAWindow, cam,
-             huber_delta: float, damping: float, pose_prior: float) -> Tuple[SE3, torch.Tensor]:
-    """One damped Schur-complement Gauss-Newton step of the window."""
-    W, L = win.kf_free.shape[0], win.points.shape[0]
-    k, l = win.obs_k.long(), win.obs_l.long()
+def _linearize(poses: SE3, points: torch.Tensor, obs_w: torch.Tensor, win: BAWindow, cam,
+               huber_delta: float):
+    """Residuals and robust-weighted Jacobians of the window's
+    observations: (r, J_p_f, Jw_p, J_x, Jw_x), the pose Jacobian of
+    fixed rows zeroed so that their update is exactly 0."""
     r, J_p, J_x, ok = _residuals(poses, points, win, cam)
     w = obs_w * ok * _robust_weight(torch.sum(r * r, -1), huber_delta)  # [N]
+    J_p_f = J_p * win.kf_free[win.obs_k.long()][:, None, None]
+    return r, J_p_f, J_p_f * w[:, None, None], J_x, J_x * w[:, None, None]
 
-    # zero the pose Jacobian of fixed rows so their update is exactly 0
-    J_p_f = J_p * win.kf_free[k][:, None, None]
-    Jw_p = J_p_f * w[:, None, None]
-    Jw_x = J_x * w[:, None, None]
 
-    # block-diagonal pose and landmark Hessians and gradients
+def _pose_blocks(W: int, k: torch.Tensor, r, J_p_f, Jw_p):
+    """Block-diagonal pose Hessian [W, 6, 6] and gradient [W, 6]."""
     z = lambda *s: torch.zeros(s, dtype=r.dtype, device=r.device)
     Hpp = z(W, 6, 6).index_add_(0, k, torch.einsum("nri,nrj->nij", Jw_p, J_p_f))
     gp = z(W, 6).index_add_(0, k, torch.einsum("nri,nr->ni", Jw_p, r))
+    return Hpp, gp
+
+
+def _landmark_blocks(L: int, W: int, k: torch.Tensor, l: torch.Tensor, r, Jw_p, J_x, Jw_x):
+    """Landmark Hessian blocks [L, 3, 3], gradient [L, 3] and the dense
+    pose-landmark coupling U [L, W, 6, 3] (U[l, k] = H_pl^T)."""
+    z = lambda *s: torch.zeros(s, dtype=r.dtype, device=r.device)
     Hll = z(L, 3, 3).index_add_(0, l, torch.einsum("nri,nrj->nij", Jw_x, J_x))
     gl = z(L, 3).index_add_(0, l, torch.einsum("nri,nr->ni", Jw_x, r))
-
-    # pose-landmark coupling blocks, scattered dense: U[l, k] = H_pl^T
     A = torch.einsum("nri,nrj->nij", Jw_p, J_x)  # [N, 6, 3]
     U = z(L, W, 6, 3).index_put_((l, k), A, accumulate=True)
+    return Hll, gl, U
 
-    # damped landmark-block inverse (Levenberg diagonal); empty slots 0
+
+def _landmark_inverse(Hll: torch.Tensor, point_ok: torch.Tensor, damping: float):
+    """Damped landmark-block inverses (Levenberg diagonal), 0 for empty
+    slots, and the mask of occupied slots."""
     eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
     Hll_d = Hll + (damping + 1e-8) * eye3 + damping * Hll * eye3
-    occupied = win.point_ok & (torch.einsum("lii->l", Hll) > 1e-12)
+    occupied = point_ok & (torch.einsum("lii->l", Hll) > 1e-12)
     Hinv = torch.linalg.inv_ex(torch.where(occupied[:, None, None], Hll_d, eye3)).inverse
-    Hinv = torch.where(occupied[:, None, None], Hinv, 0.0)
+    return torch.where(occupied[:, None, None], Hinv, 0.0), occupied
 
-    # reduced camera system S = Hpp - U^T Hinv U, contracted through
-    # Hinv U first (never an [L, W, W, 6, 6] intermediate): one
-    # [6W, 3L] x [3L, 6W] product
+
+def _reduced_system(Hpp, gp, U, Hinv, gl):
+    """The landmarks' share of the reduced camera system: S = Hpp - U^T
+    Hinv U [W, 6, W, 6] and rhs = gp - U^T Hinv gl [W, 6], contracted
+    through Hinv U first (never an [L, W, W, 6, 6] intermediate): one
+    [6W, 3L] x [3L, 6W] product. Over landmark and observation shards
+    the parts add up to the whole."""
+    L, W = U.shape[0], U.shape[1]
     HU = torch.einsum("lbc,ljdc->lbjd", Hinv, U)  # [L, 3, W, 6]
     S_off = (U.permute(0, 3, 1, 2).reshape(L * 3, W * 6).T @ HU.reshape(L * 3, W * 6)).reshape(W, 6, W, 6)
-    S = -S_off + _block_diag(Hpp)
-    # gauge/padding prior, LM damping on the pose blocks, and a weak
-    # absolute prior toward each free pose's pre-BA estimate
+    Hg = torch.einsum("lbc,lc->lb", Hinv, gl)
+    return -S_off + _block_diag(Hpp), gp - torch.einsum("lkab,lb->ka", U, Hg)
+
+
+def _pose_step(S, rhs, poses: SE3, win: BAWindow, damping: float, pose_prior: float) -> torch.Tensor:
+    """Solve the reduced system for the pose twists [W, 6], with the
+    gauge/padding prior, LM damping on the pose blocks and a weak
+    absolute prior toward each free pose's pre-BA estimate."""
+    W = win.kf_free.shape[0]
     prior = torch.where(win.kf_free, damping + pose_prior, _FIX_PRIOR)
     eye6 = torch.eye(6, dtype=S.dtype, device=S.device)
     S = S + _block_diag(prior[:, None, None] * eye6)
     # prior residual: the deviation from the pre-BA pose so far
     dev = log_se3(poses @ win.poses.inverse())  # [W, 6]
-    Hg = torch.einsum("lbc,lc->lb", Hinv, gl)
-    rhs = gp - torch.einsum("lkab,lb->ka", U, Hg) + pose_prior * dev * win.kf_free[:, None]
-
+    rhs = rhs + pose_prior * dev * win.kf_free[:, None]
     dxi = -torch.linalg.solve_ex(S.reshape(W * 6, W * 6), rhs.reshape(W * 6, 1)).result.reshape(W, 6)
     dxi = torch.where(torch.isfinite(dxi).all(), dxi, 0.0)
-    dxi = clamp_twist(dxi) * win.kf_free[:, None]
+    return clamp_twist(dxi) * win.kf_free[:, None]
 
-    # back-substitution: dl = -Hinv (gl + U dxi)
+
+def _landmark_step(U, Hinv, gl, dxi, occupied) -> torch.Tensor:
+    """Back-substitution dl = -Hinv (gl + U dxi), clamped to 0.5 m."""
     Ud = torch.einsum("lkab,ka->lb", U, dxi)
     dx = -torch.einsum("lab,lb->la", Hinv, gl + Ud)
     dx = torch.where(torch.isfinite(dx).all(), dx, 0.0)
     dxn = torch.linalg.vector_norm(dx, dim=-1, keepdim=True)
     dx = dx * torch.clamp(0.5 / torch.clamp(dxn, min=1e-9), max=1.0)
-    dx = dx * occupied[:, None]
-    return exp_se3(dxi) @ poses, points + dx
+    return dx * occupied[:, None]
+
+
+def _gn_step(poses: SE3, points: torch.Tensor, obs_w: torch.Tensor, win: BAWindow, cam,
+             huber_delta: float, damping: float, pose_prior: float) -> Tuple[SE3, torch.Tensor]:
+    """One damped Schur-complement Gauss-Newton step of the window."""
+    W, L = win.kf_free.shape[0], win.points.shape[0]
+    k, l = win.obs_k.long(), win.obs_l.long()
+    r, J_p_f, Jw_p, J_x, Jw_x = _linearize(poses, points, obs_w, win, cam, huber_delta)
+    Hpp, gp = _pose_blocks(W, k, r, J_p_f, Jw_p)
+    Hll, gl, U = _landmark_blocks(L, W, k, l, r, Jw_p, J_x, Jw_x)
+    Hinv, occupied = _landmark_inverse(Hll, win.point_ok, damping)
+    S, rhs = _reduced_system(Hpp, gp, U, Hinv, gl)
+    dxi = _pose_step(S, rhs, poses, win, damping, pose_prior)
+    return exp_se3(dxi) @ poses, points + _landmark_step(U, Hinv, gl, dxi, occupied)
 
 
 def solve_window(

@@ -19,6 +19,7 @@ rectified pair and then take the RGB-D path. `refine_map` with a `mesh`
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -555,13 +556,17 @@ class SlamSystem:
     def refine_map(self, mesh=None, window: int = 16, iterations: int = 6, sweeps: int = 2) -> dict:
         """Offline map-wide structure and pose refinement over the whole
         keyframe database: overlapping sliding-window BA sweeps like the
-        post-loop global BA. Returns {"rmse_before", "rmse_after",
-        "windows"}. A `mesh` (the distributed Schur solver) is not
-        ported yet."""
+        post-loop global BA. With a shard `mesh` (`parallel.LocalMesh` or
+        `ProcessGroupMesh`) each window is solved by the distributed
+        Schur solver over the mesh's axis. Returns {"rmse_before",
+        "rmse_after", "windows"}."""
         if mesh is not None:
-            raise NotImplementedError(
-                "refine_map(mesh=...): the distributed solver (parallel/, ROADMAP item 19) is not ported yet"
-            )
+            from ra_slam_tpu_torch.parallel.dist_ba import solve_window_distributed
+
+            solve = functools.partial(solve_window_distributed, cam=self.cam, mesh=mesh,
+                                      axis=list(mesh.shape.keys())[0], iterations=iterations)
+        else:
+            solve = functools.partial(solve_window, cam=self.cam, iterations=iterations)
         kfc = int(self.state.track.kf_counter)
         kfs, lms = self.state.kfs, self.state.track.lms
         stride = max(window // 2, 1)
@@ -570,7 +575,7 @@ class SlamSystem:
         for _ in range(sweeps):
             for start in starts:
                 win = gather_window(kfs, lms, kfc, window, self.params.ba_max_points, start=start)
-                poses, points, st = solve_window(win, self.cam, iterations=iterations)
+                poses, points, st = solve(win)
                 kfs, lms = scatter_window(kfs, lms, win, poses, points)
                 r0s.append(float(st.rmse_before))
                 r1s.append(float(st.rmse_after))

@@ -1,8 +1,9 @@
 """Tests of the PyTorch port that need the GPU: the CUDA fuse and
 Hamming kernels against their plain PyTorch versions, the fusion path,
 raycast, meshing, resizing, the UNet, a training step, dense stereo and
-rectification on the card against the same on the CPU, and nvjpeg
-against cv2's pixels on the JPEG fixture. They
+rectification on the card against the same on the CPU, sharded fusion
+on a LocalMesh on the card against the CPU, nvjpeg against cv2's pixels
+on the JPEG fixture, and nvjpeg's encoder round trip. They
 skip where torch sees no CUDA device. This file imports no JAX, so that it runs on a machine without
 it; tests/conftest.py does import JAX, so run it there as
 
@@ -250,6 +251,79 @@ def test_jpeg_fixture_decodes_through_nvjpeg(cuda):
     reader.close()
     d = np.abs(got - np.load(os.path.join(data, "jpeg_64x48_rgb.npy")).astype(np.int32))
     assert got.shape == (2, 48, 64, 3) and d.max() <= 96 and d.mean() <= 4.0
+
+
+@pytest.mark.cuda
+def test_nvjpeg_encoder_round_trip(cuda, tmp_path):
+    """A smooth 64x48 image through nvjpeg's encoder (quality 95, 4:2:0)
+    and decoder: a baseline JFIF stream, PSNR above 35 dB; and a JPEG
+    `.sens` written on the card reads back with the depth exact and the
+    colour within the same bound."""
+    from ra_slam_tpu_torch.io import sens
+    from ra_slam_tpu_torch.io.jpeg import decode_jpeg, encode_jpeg
+
+    vs, us = np.mgrid[0:48, 0:64]
+    rgb = np.stack([us * 4, vs * 5, (us + vs) * 2], -1).astype(np.uint8)
+    data = encode_jpeg(rgb, 95, cuda)
+    assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
+    back = decode_jpeg(data, cuda).cpu().numpy()
+
+    def psnr(a):
+        mse = np.mean((a.astype(np.float64) - rgb) ** 2)
+        return 10 * np.log10(255.0**2 / max(mse, 1e-12))
+
+    assert back.shape == rgb.shape and psnr(back) > 35.0
+    depth = (1000 + us * 7 + vs).astype(np.uint16)
+    path = str(tmp_path / "j.sens")
+    k = np.array([[50.0, 0, 31.5], [0, 50.0, 23.5], [0, 0, 1]], np.float32)
+    sens.write_sens(path, [rgb], [depth], [np.eye(4, dtype=np.float32)], k,
+                    color_compression=sens.COLOR_JPEG, device=cuda)
+    r = sens.SensReader(path)
+    fr = r.frame(0)
+    assert r.color_compression == sens.COLOR_JPEG
+    np.testing.assert_array_equal(r._raw_depth(0), depth)
+    assert psnr(fr.rgb) > 35.0
+    r.close()
+
+
+@pytest.mark.cuda
+def test_sharded_fusion_cuda_matches_cpu(cuda):
+    """LocalMesh(2) sharded fusion on the card (the fuse kernel once per
+    shard per frame, the shards' threads on one stream) against the same
+    on the CPU, 6 frames of the small orbit: every shard's keys, table,
+    free stack and counters exactly, the payload within the single-map
+    test's bounds."""
+    from ra_slam_tpu_torch.parallel import LocalMesh, create_sharded_map, make_sharded_integrate_step
+
+    cfg = TsdfConfig(voxel_size=0.04, truncation=0.16, max_depth=6.0,
+                     log2_num_blocks=12, log2_hash_size=14, max_visible_blocks=2048,
+                     max_new_blocks=4096, width=160, height=120)
+    spec = SyntheticCameraSpec(fx=80.0, fy=80.0, cx=79.5, cy=59.5, width=160, height=120)
+    ds = SyntheticBoxDataset(num_frames=12, cam=spec, radius=1.0, seed=0)
+    cam = PinholeCamera.create(80.0, 80.0, 79.5, 59.5, 160, 120)
+    meshes = {dev: LocalMesh(2, dev) for dev in ("cpu", cuda)}
+    shards = {dev: create_sharded_map(cfg, mesh) for dev, mesh in meshes.items()}
+    steps = {dev: make_sharded_integrate_step(mesh, cfg, alloc_stride=2) for dev, mesh in meshes.items()}
+    n0 = tsdf_fuse.LAUNCHES
+    for i in range(0, 12, 2):
+        f = ds.frame(i)
+        stats = {}
+        for dev in meshes:
+            tt = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+            shards[dev], st = steps[dev](shards[dev], tt(f.rgb), tt(f.depth), tt(f.ht), tt(f.lt), cam,
+                                         SE3.from_matrix(tt(f.cam_T_world)))
+            stats[str(dev)] = {k: int(v) for k, v in st.items()}
+        assert stats["cpu"] == stats[str(cuda)], (i, stats)
+    assert tsdf_fuse.LAUNCHES == n0 + 2 * 6
+    for c_shard, g_shard in zip(shards["cpu"], shards[cuda]):
+        c, g = voxel_map_to_numpy(c_shard), voxel_map_to_numpy(g_shard)
+        for name in ("block_key", "block_slot", "active", "free_top", "alloc_failures"):
+            np.testing.assert_array_equal(getattr(c, name), getattr(g, name), err_msg=name)
+        np.testing.assert_array_equal(c.table.key, g.table.key)
+        np.testing.assert_array_equal(c.free_stack[:int(c.free_top)], g.free_stack[:int(g.free_top)])
+        for name, bound in {**TOL, "prob": 1e-4}.items():
+            err = np.abs(getattr(c, name) - getattr(g, name)).max()
+            assert err <= bound, (name, err)
 
 
 @pytest.mark.cuda

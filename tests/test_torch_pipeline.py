@@ -143,6 +143,16 @@ assert ByteQueue(1).push(b"x")
 lg = FrameLogger(os.path.join(out, "log"))
 assert lg.log_frame(0, fr.rgb, fr.depth, ht=fr.ht, lt=fr.lt)
 lg.close()
+from ra_slam_tpu_torch.parallel import LocalMesh, create_sharded_map, make_sharded_integrate_step
+from ra_slam_tpu_torch.parallel.sharded_map import extract_mesh_sharded
+pmesh, pcfg = LocalMesh(2, "cpu"), cfg.tsdf
+shards, pst = make_sharded_integrate_step(pmesh, pcfg, owner_mode="slab")(
+    create_sharded_map(pcfg, pmesh), *(__import__("torch").as_tensor(a) for a in (fr.rgb, fr.depth, fr.ht, fr.lt)),
+    s.tsdf_cam, s.query_camera_pose(fr.timestamp))
+assert int(pst["num_active"]) > 0 and len(extract_mesh_sharded(shards, pmesh, pcfg, min_weight=0.5)[1]) > 0
+import importlib.util
+spec = importlib.util.spec_from_file_location("gen_eval_torch", os.path.join("scripts", "gen_eval_torch.py"))
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for mod in pkgutil.walk_packages(ra_slam_tpu_torch.__path__, "ra_slam_tpu_torch."):
     importlib.import_module(mod.name)
 leaked = [m for m in sys.modules if m == "ra_slam_tpu" or m.startswith("ra_slam_tpu.")]
@@ -160,9 +170,11 @@ def test_port_imports_without_jax_yaml_cv2():
     frame, fuses it at the tracked pose, renders and meshes it, and the
     viewer renders its checkpoint; a rectifier reads `calib_to_yaml`'s
     text and rectifies a pair, dense stereo runs on it, a `.sens` file
-    is prefetched and a frame logged: with jax, flax, yaml, cv2, PIL and
-    msgpack unavailable and no ra_slam_tpu module loaded (the port needs
-    none of them on the machine with the GPU)."""
+    is prefetched and a frame logged; two slab shards fuse the frame on
+    a `LocalMesh` and mesh it, and scripts/gen_eval_torch.py loads: with
+    jax, flax, yaml, cv2, PIL and msgpack unavailable and no ra_slam_tpu
+    module loaded (the port needs none of them on the machine with the
+    GPU)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
         [sys.executable, "-c", _GUARD], cwd=REPO, env=env,

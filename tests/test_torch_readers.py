@@ -167,8 +167,8 @@ def test_sens_written_by_port_reads_as_in_jax(tmp_path):
     path = str(tmp_path / "scene.sens")
     tsens.write_sens(path, rgbs, depths, c2w, k, depth_shift=500.0, timestamps_us=[0, 40000, 90000])
     _assert_sens_equal(tsens.SensReader(path), jsens.SensReader(path))
-    with pytest.raises(NotImplementedError, match="no JPEG encoder"):
-        tsens.write_sens(path, rgbs, depths, c2w, k, color_compression=tsens.COLOR_JPEG)
+    with pytest.raises(RuntimeError, match="no JPEG encoder on the CPU"):
+        tsens.write_sens(path, rgbs, depths, c2w, k, color_compression=tsens.COLOR_JPEG, device="cpu")
 
 
 def test_jpeg_sens_without_a_decoder_raises():
@@ -188,3 +188,29 @@ def test_jpeg_sens_without_a_decoder_raises():
         with pytest.raises(RuntimeError, match="no JPEG decoder.*probed turbojpeg"):
             port.frame(0)
     port.close()
+
+
+def test_jpeg_encoder_planes_follow_libjpeg():
+    """`rgb_to_ycbcr420`, the planes nvjpeg encodes: libjpeg's 16-bit
+    fixed-point YCbCr (within one level of cv2's 14-bit conversion), the
+    chroma halved per 2x2 block with libjpeg's alternating bias 1, 2,
+    odd edges replicated."""
+    import cv2
+
+    from ra_slam_tpu_torch.io.jpeg import rgb_to_ycbcr420
+
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (37, 51, 3), dtype=np.uint8)
+    y, cb, cr = (p.numpy().astype(np.int64) for p in rgb_to_ycbcr420(torch.tensor(img)))
+    ycc = cv2.cvtColor(img, cv2.COLOR_RGB2YCrCb).astype(np.int64)
+    r, g, b = (img[..., c].astype(np.int64) for c in range(3))
+    np.testing.assert_array_equal(y, (19595 * r + 38470 * g + 7471 * b + 32768) >> 16)
+    assert np.abs(y - ycc[..., 0]).max() <= 1
+    full_cb = (-11059 * r - 21709 * g + 32768 * b + (128 << 16) + 32767) >> 16
+    full_cr = (32768 * r - 27439 * g - 5329 * b + (128 << 16) + 32767) >> 16
+    assert np.abs(full_cr - ycc[..., 1]).max() <= 1 and np.abs(full_cb - ycc[..., 2]).max() <= 1
+    for full, half in ((full_cb, cb), (full_cr, cr)):
+        p = np.pad(full, ((0, 1), (0, 1)), mode="edge")
+        s = p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2]
+        assert half.shape == (19, 26)
+        np.testing.assert_array_equal(half, (s + 1 + (np.arange(26) & 1)) >> 2)

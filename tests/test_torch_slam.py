@@ -405,12 +405,10 @@ def test_formerly_deferred_configurations_run(kw):
 
 
 def test_deferred_entry_points_raise(monkeypatch):
-    """What is still not ported raises: the distributed solver behind
-    `refine_map(mesh=...)`, and a cuda device without a GPU."""
+    """What cannot run raises: stereo tracking without a baseline, and a
+    cuda device without a GPU."""
     cam = PinholeCamera.create(80.0, 80.0, 79.5, 59.5, 160, 120)
     s = SlamSystem(cam, tcfg=TrackingConfig(max_map_points=64, max_keyframes=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        s.refine_map(mesh=object())
     with pytest.raises(ValueError, match="focal_x_baseline"):
         s.feed_stereo_frame(np.zeros((120, 160), np.float32), np.zeros((120, 160), np.float32), 0.0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -30,6 +30,7 @@ from ra_slam_tpu.slam.system import SlamSystem as JaxSlamSystem
 from ra_slam_tpu_torch.core.camera import PinholeCamera
 from ra_slam_tpu_torch.core.config import FeatureConfig, TrackingConfig
 from ra_slam_tpu_torch.core.se3 import SE3, exp_se3
+from ra_slam_tpu_torch.parallel import LocalMesh
 from ra_slam_tpu_torch.slam import system as tsys
 from ra_slam_tpu_torch.slam.loop_closure import LoopCandidate
 from ra_slam_tpu_torch.slam.system import SlamSystem
@@ -199,5 +200,9 @@ def test_refine_map_matches_jax():
         np.testing.assert_allclose(tr[name], jr[name], atol=RMSE_TOL)
     assert tr["rmse_after"] <= tr["rmse_before"]
     _assert_states(ts.state, _np_tree(jsys_.state))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        ts.refine_map(mesh=object())
+    # over a one-shard mesh the distributed solver runs the same
+    # operations as solve_window: the same result bit for bit
+    tm = _port_system(ds)
+    tm.state = slam_state_from_numpy(states[-1], "cpu")
+    assert tm.refine_map(mesh=LocalMesh(1, "cpu", axis="ba"), **kw) == tr
+    assert torch.equal(tm.state.kfs.t, ts.state.kfs.t) and torch.equal(tm.state.track.lms.pos, ts.state.track.lms.pos)
