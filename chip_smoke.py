@@ -5,8 +5,8 @@
 
 Run from the root of the repository. Ten phases, two of the map
 readers (3b, 3c), the recorded-data path (2b, 3d-3h), training (11),
-the live robot path (12-15), and the parallel layer, JPEG encoding and
-the EVAL rows (16-20), none of whose failures is caught; each prints its
+the live robot path (12-15), and the parallel layer, JPEG encoding,
+the EVAL rows and the carried steps (16-20c), none of whose failures is caught; each prints its
 wall time:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
@@ -151,11 +151,25 @@ wall time:
      depth exact, colour within the same bound;
  20. the EVAL matrix's seed-0 rows (hardened scene, 150 VGA frames) loop
      on and off: >= 1 closure loop on, ATE loop on below loop off, the
-     lost frames and closures of the JAX package as it stands and each
-     ATE within EVAL_ATE_TOL of its (EVAL_JAX_SEED0; `EVAL_r05.json`'s
-     older rows printed beside);
+     lost frames and closures of the JAX package as it stands, run op by
+     op, and each ATE within EVAL_ATE_TOL of its (EVAL_JAX_SEED0; the
+     jitted rows and `EVAL_r05.json`'s older rows printed beside);
+ 20b. the carried steps of tests/test_torch_lockstep.py on the card: each
+     fixture frame's ORB keypoints on the card equal to the CPU's bit for
+     bit (uv, valid, score, descriptors); then from each fixture's JAX
+     state (tests/data/lockstep_*.npz: frames 17 and 23 of the EVAL `ba1`
+     row, its first relocalization, the first windowed BA after it), one
+     `feed_rgbd_frame`: every discrete `FrameInfo` field equal to the JAX
+     package's op-by-op step stored there, the pose within 1e-5;
+ 20c. the EVAL `ba1` row (BA at every keyframe, seed 0, 150 VGA frames)
+     free-running on the card: ATE, lost frames, relocalizations,
+     keyframes and tracked f/s beside the port's row on the CPU and the
+     JAX package's, op by op and jitted (tests/data/lockstep_traces.json,
+     written by scripts/lockstep_torch_jax.py), and the first frame at
+     which the card's discrete trace parts from each; reported, not
+     gated;
  10. a JSON line of the kernels' numbers (launches summed over every
-     path, 3d, 3e, 14-16, 18 and 20 included; times, bound and library
+     path, 3d, 3e, 14-16, 18 and 20-20c included; times, bound and library
      time at the main path's shapes: the fuse kernel at frame 10, the
      Hamming kernel at the tracking shape), then the result line.
 
@@ -227,14 +241,23 @@ JPEG_FRAMES = 20  # phase 19
 JPEG_PSNR_DB = 1.0  # nvjpeg's PSNR against cv2's at quality 95
 # phase 20: the EVAL matrix's seed-0 rows, loop on / off. EVAL_r05.json
 # records the JAX package as it stood in round 5 (ATE 0.0090 / 0.0134 m,
-# no frame lost); the JAX package as it stands, whose ORB detection and
-# tracking step changed after that file, loses frame 116 on this scene
-# and gives the rows below (scripts/eval_matrix_jax.py on a CPU), which
-# the port is held to
+# no frame lost). The port is held to the JAX package as it stands, run
+# op by op (its source's own float32 operations: scripts/
+# lockstep_torch_jax.py --mode free-op-by-op on a CPU), which tracks
+# every frame; jitted, XLA contracts multiply-adds and the JAX package
+# loses frame 116 (scripts/eval_matrix_jax.py: EVAL_JAX_JIT_SEED0, printed
+# beside)
 EVAL_R05_ATE = {True: 0.0090, False: 0.0134}
-EVAL_JAX_SEED0 = {True: {"ate_rmse_m": 0.0112, "lost_frames": 1, "loop_closures": 4},
-                  False: {"ate_rmse_m": 0.0159, "lost_frames": 1, "loop_closures": 0}}
+EVAL_JAX_SEED0 = {True: {"ate_rmse_m": 0.0100, "lost_frames": 0, "loop_closures": 4},
+                  False: {"ate_rmse_m": 0.0152, "lost_frames": 0, "loop_closures": 0}}
+EVAL_JAX_JIT_SEED0 = {True: {"ate_rmse_m": 0.0112, "lost_frames": 1, "loop_closures": 4},
+                      False: {"ate_rmse_m": 0.0159, "lost_frames": 1, "loop_closures": 0}}
 EVAL_ATE_TOL = 0.002
+# phase 20b: the carried steps of tests/test_torch_lockstep.py, held to
+# the JAX package's op-by-op step stored in each fixture
+LOCKSTEP_DISCRETE = ("tracked", "num_matches", "num_inliers", "inserted_keyframe", "relocalized",
+                     "loop_cand", "loop_inliers", "loop_closed", "ba_dropped")
+LOCKSTEP_POSE_TOL = 1e-5
 # dense stereo card vs CPU: `valid` may differ only where a sentinel cost
 # (1e9, summed in another order) reaches the decision, left of column
 # 2 D + 8; depth is the same float32 division where both are valid
@@ -2016,7 +2039,8 @@ def phase_eval_rows(card):
                                          loop_closure=loop, device="cuda")
         r = rows[loop]
         print(f"EVAL seed 0, loop {'on' if loop else 'off'}: ATE {r['ate_rmse_m']} m (the JAX package "
-              f"{json.dumps(EVAL_JAX_SEED0[loop])}; EVAL_r05.json {EVAL_R05_ATE[loop]}, 0 lost), lost "
+              f"{json.dumps(EVAL_JAX_SEED0[loop])} op by op, {json.dumps(EVAL_JAX_JIT_SEED0[loop])} jitted; "
+              f"EVAL_r05.json {EVAL_R05_ATE[loop]}, 0 lost), lost "
               f"{r['lost_frames']}, closures {r['loop_closures']}, relocalizations {r['relocalizations']}, "
               f"keyframes {r['keyframes']}, {r['steady_state_fps']} tracked f/s; {card}")
     launches = hamming.LAUNCHES
@@ -2030,6 +2054,147 @@ def phase_eval_rows(card):
             raise AssertionError(f"EVAL seed 0 loop {loop}: {r} vs the JAX package's {want}")
     if launches < 2 * ev.N_FRAMES:
         raise AssertionError(f"the EVAL rows launched the Hamming kernel {launches} times")
+    return launches
+
+
+def _eval_row(ev, name):
+    """(seed, loop closing, other keywords) of a named row of the EVAL
+    matrix (the seed-0 baseline with loop closing is `baseline`)."""
+    found = {}
+
+    def run(tag, **kw):
+        if tag != "baseline" or kw.get("loop_closure", True):
+            found.setdefault(tag, kw)
+
+    ev.matrix(run, seeds=(0,), ablation_seeds=(0,))
+    kw = dict(found[name])
+    return kw.pop("seed", 0), kw.pop("loop_closure", True), kw
+
+
+def _lockstep_fixture(path):
+    """(frame, row, JAX state before it as nested namespaces, the JAX
+    op-by-op step's FrameInfo, the jitted step's) of one
+    tests/data/lockstep_*.npz (tests/data/make_lockstep_fixtures.py)."""
+    from types import SimpleNamespace
+
+    with np.load(path) as z:
+        d = {k: z[k] for k in z.files}
+    root: dict = {}
+    for key, v in d.items():
+        if key.startswith("before."):
+            node = root
+            parts = key[len("before."):].split(".")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = v
+    ns = lambda x: SimpleNamespace(**{k: ns(v) if isinstance(v, dict) else v for k, v in x.items()})
+    side = lambda p: {k[len(p) + 1:]: v for k, v in d.items() if k.startswith(p + ".")}
+    return int(d["meta.frame"]), str(d["meta.row"]), ns(root), side("info"), side("jit")
+
+
+def phase_carried_steps(card):
+    """20b: tests/test_torch_lockstep.py's carried steps on the card."""
+    import glob
+
+    from ra_slam_tpu_torch.eval.trajectory_bench import tracking_setup
+    from ra_slam_tpu_torch.features.orb import detect_and_describe
+    from ra_slam_tpu_torch.features.pyramid import rgb_to_gray
+    from ra_slam_tpu_torch.ops import hamming
+    from ra_slam_tpu_torch.utils.convert import slam_state_from_numpy
+
+    ev = _load_script("gen_eval_torch")
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(glob.glob(os.path.join(here, "tests", "data", "lockstep_*.npz")))
+    # the frames' ORB on the card equals the CPU's bit for bit (the
+    # pyramid's chained sums and the FAST ring sums are device-independent)
+    for path in paths:
+        frame, row, *_ = _lockstep_fixture(path)
+        seed, loop, kw = _eval_row(ev, row)
+        ds, slam = tracking_setup(ev.W, ev.H, 0.005, seed, ev.HARD, "cpu", loop, **kw)
+        gray = rgb_to_gray(torch.as_tensor(ds.frame(frame).rgb))
+        kc, kg = detect_and_describe(gray, slam.fcfg), detect_and_describe(gray.cuda(), slam.fcfg)
+        same = {f: bool(torch.equal(getattr(kc, f), getattr(kg, f).cpu())) for f in ("uv", "valid", "score", "desc")}
+        print(f"ORB of {row} frame {frame}, card against CPU: {same}; angles "
+              f"{float((kc.angle - kg.angle.cpu()).abs().max()):.2e} rad apart")
+        if not all(same.values()):
+            raise AssertionError(f"ORB of frame {frame} differs between the card and the CPU: {same}")
+    if len(paths) < 3:
+        raise AssertionError(f"carried-step fixtures: {paths}")
+    hamming.LAUNCHES = 0
+    for path in paths:
+        frame, row, before, info, jit = _lockstep_fixture(path)
+        seed, loop, kw = _eval_row(ev, row)
+        ds, slam = tracking_setup(ev.W, ev.H, 0.005, seed, ev.HARD, "cuda", loop, **kw)
+        slam.state = slam_state_from_numpy(before, "cuda")
+        fr = ds.frame(frame)
+        t0 = time.perf_counter()
+        out = slam.feed_rgbd_frame(fr.rgb, fr.depth, fr.timestamp, frame_id=frame)
+        got = {k: getattr(out, k) for k in LOCKSTEP_DISCRETE}
+        ms = (time.perf_counter() - t0) * 1e3
+        gap_t = float(np.abs(out.pose.t.cpu().numpy() - info["t"]).max())
+        gap_r = float(np.abs(out.pose.R.cpu().numpy() - info["R"]).max())
+        parted = [k for k in LOCKSTEP_DISCRETE if got[k] != int(info[k])]
+        print(f"carried step {row} frame {frame} on the card: {got['num_matches']} matches / "
+              f"{got['num_inliers']} inliers, tracked {got['tracked']}, relocalized {got['relocalized']}, "
+              f"keyframe {got['inserted_keyframe']}, BA rmse {out.ba_rmse:.6f} px (the JAX step op by op: "
+              f"{int(info['num_matches'])} / {int(info['num_inliers'])}, BA rmse {float(info['ba_rmse']):.6f}; "
+              f"jitted: {int(jit['num_matches'])} / {int(jit['num_inliers'])}); pose {gap_t:.2e} m / {gap_r:.2e} "
+              f"from op by op (bound {LOCKSTEP_POSE_TOL}); {ms:.0f} ms; {card}")
+        if parted or not max(gap_t, gap_r) <= LOCKSTEP_POSE_TOL:
+            raise AssertionError(f"carried step {row} frame {frame}: {parted} differ from the JAX op-by-op step "
+                                 f"({got} vs {info}), pose {gap_t} / {gap_r}")
+    launches = hamming.LAUNCHES
+    if launches < len(paths):
+        raise AssertionError(f"the carried steps launched the Hamming kernel {launches} times")
+    return launches
+
+
+def phase_ba1_row(card):
+    """20c: the EVAL matrix's `ba1` row free-running on the card, beside
+    the port on the CPU and the jitted JAX package (reported, not
+    gated: a free run on this path follows the last bit)."""
+    from ra_slam_tpu_torch.core.se3 import SE3
+    from ra_slam_tpu_torch.eval.ate import ate_rmse
+    from ra_slam_tpu_torch.eval.trajectory_bench import tracking_setup
+    from ra_slam_tpu_torch.ops import hamming
+
+    ev = _load_script("gen_eval_torch")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "tests", "data", "lockstep_traces.json")) as f:
+        traces = json.load(f)
+    keys, cpu = traces["keys"], traces["rows"]["ba1"]
+    seed, loop, kw = _eval_row(ev, "ba1")
+    ds, slam = tracking_setup(ev.W, ev.H, 0.005, seed, ev.HARD, "cuda", loop, **kw)
+    hamming.LAUNCHES = 0
+    trace, gt = [], []
+    t0 = time.perf_counter()
+    for i in range(ev.N_FRAMES):
+        fr = ds.frame(i)
+        hint = SE3.from_matrix(torch.as_tensor(fr.cam_T_world)) if i == 0 else None
+        info = slam.feed_rgbd_frame(fr.rgb, fr.depth, fr.timestamp, frame_id=i, pose_hint=hint)
+        trace.append([int(getattr(info, k)) for k in keys])
+        gt.append((i, np.asarray(fr.cam_T_world)[:3, :4]))
+    torch.cuda.synchronize()
+    fps = ev.N_FRAMES / (time.perf_counter() - t0)
+    launches = hamming.LAUNCHES
+    ate = float(ate_rmse(slam.trajectory(), gt)["ate_rmse"])
+    card_row = {"ate_rmse_m": round(ate, 4), "lost_frames": sum(1 - t[keys.index("tracked")] for t in trace),
+                "relocalizations": slam.num_relocalizations, "keyframes": int(slam.state.track.kf_counter),
+                "loop_closures": slam.num_loop_closures, "tracked_fps": round(fps, 2)}
+    sides = {"port_cpu": "the port on the CPU", "jax_op_by_op_cpu": "the JAX package op by op on the CPU",
+             "jax_jit_cpu": "the JAX package jitted on the CPU"}
+    first = {side: next((i for i, (a, b) in enumerate(zip(trace, cpu[side])) if a != b), None)
+             for side in sides if side in cpu}
+    print(f"EVAL ba1 row, free-running: the card {json.dumps(card_row)}; "
+          + "; ".join(f"{sides[s]} {json.dumps(cpu['summary'][s])}" for s in first)
+          + f" (scripts/lockstep_torch_jax.py); the card's discrete trace ({', '.join(keys)}) first parts "
+          + ", ".join(f"from {sides[s]} at frame {first[s]}" for s in first)
+          + f"; {launches} Hamming launches; {card}")
+    if first["port_cpu"] is not None and first["port_cpu"] < 17:
+        print(f"the card parts from the port on the CPU before frame 17: at frame {first['port_cpu']}, "
+              f"card {trace[first['port_cpu']]} vs CPU {cpu['port_cpu'][first['port_cpu']]}")
+    if not np.isfinite(ate) or launches < ev.N_FRAMES:
+        raise AssertionError(f"EVAL ba1 row: ATE {ate}, {launches} Hamming launches")
     return launches
 
 
@@ -2090,8 +2255,10 @@ def main():
     scaling_fuse = phase("18", phase_scaling, card)
     phase("19", phase_jpeg, dev, card)
     eval_ham = phase("20", phase_eval_rows, card)
+    carried_ham = phase("20b", phase_carried_steps, card)
+    ba1_ham = phase("20c", phase_ba1_row, card)
     launches += full_fuse + live_fuse + shard_fuse + scaling_fuse
-    ham_launches += loop_launches + full_ham + stereo_launches + live_ham + eval_ham
+    ham_launches += loop_launches + full_ham + stereo_launches + live_ham + eval_ham + carried_ham + ba1_ham
     print(f"the fuse kernel at one shard's shape (phase 16): {json.dumps(shard_numbers)}")
 
     print(card)

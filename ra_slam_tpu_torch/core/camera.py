@@ -51,6 +51,15 @@ class PinholeCamera:
         y = (uv[..., 1] - self.cy) / self.fy * depth
         return torch.stack([x, y, depth], dim=-1)
 
+    def pixel_grid(self, device="cpu") -> torch.Tensor:
+        """[H, W, 2] float32 grid of (u, v) pixel-center coordinates."""
+        v, u = torch.meshgrid(
+            torch.arange(self.height, dtype=torch.float32, device=device),
+            torch.arange(self.width, dtype=torch.float32, device=device),
+            indexing="ij",
+        )
+        return torch.stack([u, v], dim=-1)
+
     def in_bounds(self, uv: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
         """Boolean mask: uv within the image rectangle."""
         u, v = uv[..., 0], uv[..., 1]
@@ -74,9 +83,10 @@ class PinholeCamera:
 
 def to_i32(x: torch.Tensor) -> torch.Tensor:
     """float -> int32 as XLA converts: NaN to 0, out-of-range values
-    saturate (torch's cast gives INT_MIN for both)."""
+    saturate to INT_MIN / INT_MAX (torch's cast gives INT_MIN for both)."""
     x = torch.nan_to_num(x, nan=0.0)
-    return x.clamp(-(2.0**31), 2147483520.0).to(torch.int32)
+    out = x.clamp(-(2.0**31), 2147483520.0).to(torch.int32)
+    return torch.where(x >= 2.0**31, torch.iinfo(torch.int32).max, out)
 
 
 def bilinear_sample(img: torch.Tensor, uv: torch.Tensor, fill: float = 0.0):

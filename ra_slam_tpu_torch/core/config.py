@@ -162,11 +162,20 @@ class TrackingConfig:
 
 
 @dataclass(frozen=True)
+class BAConfig:
+    window_size: int = 8
+    iterations: int = 8
+    huber_delta: float = 2.0
+    damping: float = 1e-4
+
+
+@dataclass(frozen=True)
 class SystemConfig:
     camera: CameraConfig = field(default_factory=CameraConfig)
     tsdf: TsdfConfig = field(default_factory=TsdfConfig)
     feature: FeatureConfig = field(default_factory=FeatureConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
+    ba: BAConfig = field(default_factory=BAConfig)
     # extrinsics: 4x4 row-major depth-cam -> tracking-cam transform
     extrinsics: Optional[list] = None
 

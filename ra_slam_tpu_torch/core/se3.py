@@ -71,6 +71,10 @@ class SE3:
         top = torch.cat([self.R, self.t[..., :, None]], dim=-1)
         return torch.cat([top, bottom], dim=-2)
 
+    def as_matrix34(self) -> torch.Tensor:
+        """[..., 3, 4] matrix (the reference's trajectory row format)."""
+        return torch.cat([self.R, self.t[..., :, None]], dim=-1)
+
     def inverse(self) -> "SE3":
         Rt = self.R.transpose(-1, -2)
         return SE3(Rt, -_mv_fma(Rt, self.t))

@@ -34,6 +34,17 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _ring_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Sum of the 16 ring terms [16, H, W] in ring order, as XLA's CPU
+    reduce sums them. Neighbouring pixels' scores often tie exactly, and
+    non-maximum suppression keeps both of a tie, so the order decides
+    keypoints; a CUDA reduction interleaves its accumulators."""
+    acc = terms[0]
+    for k in range(1, terms.shape[0]):
+        acc = acc + terms[k]
+    return acc
+
+
 def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
     """[H, W] corner score: 0 for non-corners, else the sum of absolute
     differences beyond the threshold (OpenCV-style V score)."""
@@ -50,8 +61,8 @@ def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
         return run.any(dim=0)
 
     is_corner = has_arc(bright) | has_arc(dark)
-    db = torch.where(bright, ring - center - threshold, 0.0).sum(dim=0)
-    dd = torch.where(dark, center - threshold - ring, 0.0).sum(dim=0)
+    db = _ring_sum(torch.where(bright, ring - center - threshold, 0.0))
+    dd = _ring_sum(torch.where(dark, center - threshold - ring, 0.0))
     score = torch.maximum(db, dd)
 
     u = torch.arange(W, device=img.device)[None, :]

@@ -18,7 +18,7 @@ from dataclasses import dataclass
 import torch
 
 from ra_slam_tpu_torch.features.orb import NUM_PAIRS
-from ra_slam_tpu_torch.ops.hamming import hamming_matrix  # noqa: F401 (the matcher's entry point)
+from ra_slam_tpu_torch.ops.hamming import hamming_matrix
 
 
 def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
@@ -26,6 +26,12 @@ def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
     bits = (desc[:, :, None] >> shifts) & 1
     return bits.reshape(desc.shape[0], NUM_PAIRS).to(torch.float32) * 2.0 - 1.0
+
+
+def hamming_matrix_popcount(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """Exact integer Hamming matrix [Ka, Kb] int32 (XOR + popcount:
+    the kernel on the card, its plain version on the CPU)."""
+    return hamming_matrix(desc_a, desc_b).to(torch.int32)
 
 
 @dataclass(frozen=True)

@@ -29,7 +29,7 @@ import torch
 from ra_slam_tpu_torch.core.camera import to_i32
 from ra_slam_tpu_torch.core.config import FeatureConfig
 from ra_slam_tpu_torch.features.fast import fast_corners
-from ra_slam_tpu_torch.features.pyramid import build_pyramid, gaussian_blur
+from ra_slam_tpu_torch.features.pyramid import build_pyramid, gaussian_blur, rgb_to_gray
 
 PATCH_RADIUS = 15  # 31x31 orientation / descriptor patch
 NUM_PAIRS = 256
@@ -146,3 +146,8 @@ def detect_and_describe(gray: torch.Tensor, cfg: FeatureConfig) -> Keypoints:
         level = torch.full((quota,), lvl, dtype=torch.int32, device=gray.device)
         parts.append((uv * cfg.scale_factor**lvl, level, score, ang, desc, valid))
     return Keypoints(*(torch.cat(list(p)) for p in zip(*parts)))
+
+
+def detect_and_describe_rgb(rgb: torch.Tensor, cfg: FeatureConfig) -> Keypoints:
+    """ORB on one [H, W, 3] (0..255) colour image."""
+    return detect_and_describe(rgb_to_gray(rgb), cfg)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ra_slam_tpu_torch.core.camera import to_i32
+
 BLOCK_LEN = 8
 BLOCK_VOLUME = BLOCK_LEN**3  # 512
 
@@ -74,6 +76,16 @@ def owner_slab(key: torch.Tensor, n_shards: int, cell_log2: int = 2) -> torch.Te
         return torch.zeros_like(key)
     bx = unpack_block_coords(key)[..., 0]
     return torch.remainder(bx >> cell_log2, n_shards).to(torch.int32)
+
+
+def point_to_block(voxel_coords: torch.Tensor) -> torch.Tensor:
+    """Global voxel coords [..., 3] -> containing block coords (floor div)."""
+    return torch.div(voxel_coords, BLOCK_LEN, rounding_mode="floor")
+
+
+def world_to_voxel(pts: torch.Tensor, voxel_size: float) -> torch.Tensor:
+    """World meters [..., 3] -> global voxel coords (floor)."""
+    return to_i32(torch.floor(pts / voxel_size))
 
 
 def voxel_offsets(device) -> torch.Tensor:

@@ -84,3 +84,18 @@ def test_hash_table_batches_exact():
             np.testing.assert_array_equal(np.asarray(jt.key), tt.key.numpy())
             np.testing.assert_array_equal(np.asarray(jt.value), tt.value.numpy())
     assert n_failed > 0  # full buckets were reached
+
+
+def test_point_to_block_and_world_to_voxel_exact():
+    rng = np.random.default_rng(3)
+    vox = rng.integers(-5000, 5000, (4000, 3)).astype(np.int32)
+    np.testing.assert_array_equal(np.asarray(jb.point_to_block(jnp.asarray(vox))),
+                                  tb.point_to_block(torch.from_numpy(vox)).numpy())
+    pts = rng.uniform(-20, 20, (4000, 3)).astype(np.float32)
+    pts[:40] = np.round(pts[:40] / 0.04) * 0.04  # on voxel faces
+    pts[40:44] = [[1e12, -1e12, np.nan]] * 4  # saturating casts
+    for vs in (0.01, 0.04):
+        ref = np.asarray(jb.world_to_voxel(jnp.asarray(pts), vs))
+        out = tb.world_to_voxel(torch.from_numpy(pts), vs)
+        assert out.dtype == torch.int32
+        np.testing.assert_array_equal(out.numpy(), ref)

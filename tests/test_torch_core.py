@@ -86,3 +86,31 @@ def test_load_yaml_config_matches(style, tmp_path):
     assert dataclasses.asdict(t.camera) == dataclasses.asdict(j.camera)
     assert dataclasses.asdict(t.tsdf) == dataclasses.asdict(j.tsdf)
     assert t.extrinsics == j.extrinsics
+
+
+def test_ba_config_and_system_config_ba_match():
+    assert dataclasses.asdict(tconfig.BAConfig()) == dataclasses.asdict(jconfig.BAConfig())
+    assert dataclasses.asdict(tconfig.SystemConfig().ba) == dataclasses.asdict(jconfig.SystemConfig().ba)
+    assert [f.name for f in dataclasses.fields(tconfig.SystemConfig)] == [
+        f.name for f in dataclasses.fields(jconfig.SystemConfig)]
+
+
+def test_se3_as_matrix34_exact():
+    m = _pose(4)
+    jT = JaxSE3.from_matrix(jnp.asarray(m))
+    tT = SE3.from_matrix(torch.from_numpy(m))
+    np.testing.assert_array_equal(np.asarray(jT.as_matrix34()), tT.as_matrix34().numpy())
+    rng = np.random.default_rng(5)
+    R = np.stack([np.asarray(exp_so3(jnp.asarray(rng.normal(size=3), jnp.float32))) for _ in range(5)])
+    t = rng.normal(size=(5, 3)).astype(np.float32)
+    out = SE3(torch.from_numpy(R), torch.from_numpy(t)).as_matrix34()
+    assert out.shape == (5, 3, 4)
+    np.testing.assert_array_equal(np.asarray(JaxSE3(jnp.asarray(R), jnp.asarray(t)).as_matrix34()), out.numpy())
+
+
+def test_camera_pixel_grid_exact():
+    jc = JaxCamera.create(80.0, 80.0, 79.5, 59.5, 160, 120)
+    tc = PinholeCamera.create(80.0, 80.0, 79.5, 59.5, 160, 120)
+    g = tc.pixel_grid()
+    assert g.dtype == torch.float32 and g.shape == (120, 160, 2)
+    np.testing.assert_array_equal(np.asarray(jc.pixel_grid()), g.numpy())

@@ -69,6 +69,44 @@ def test_pyramid_and_blur_match_jax(kind):
     assert np.abs(tpyr.gaussian_blur(_t(gray)).numpy() - jb).max() <= LEVEL_TOL
 
 
+def test_resample_weights_equal_jax():
+    """The resampling weights of every level of a VGA pyramid (the EVAL
+    scene's) equal `jax.image.resize`'s exactly: their column sums run in
+    XLA's CPU order, blocks of 32 rows. (Summed in turn, 12 of the 341,120
+    weights at 640 -> 533 were an ulp off. Inputs of 240 or 120 rows
+    follow neither order: up to 20 weights of a matrix stay an ulp off.)"""
+    from jax._src.image import scale
+
+    W, H = 640, 480
+    for h, w in tpyr.pyramid_shapes(H, W, 4, 1.2)[1:]:
+        for i, o in ((H, h), (W, w)):
+            with jax.disable_jit():
+                ref = np.asarray(scale.compute_weight_mat(i, o, o / i, 0.0, scale._kernels[scale.ResizeMethod.LINEAR],
+                                                          True))
+            np.testing.assert_array_equal(tpyr._weight_mat(i, o), ref, err_msg=f"{i} -> {o}")
+
+
+def test_vga_pyramid_follows_xla_sums():
+    """A VGA frame of the EVAL scene: every level, and its blur, bit-equal
+    to the JAX package's op by op (XLA's CPU dot sums each output in fused
+    multiply-add chains, split where it splits the contracted axis; its
+    convolution adds the blur's products in pairs; an ulp off moves a
+    blurred pixel across a bf16 rounding boundary that BRIEF reads). Two
+    float32 matrix products left 10-35% of each level an ulp off, and the
+    blur summed tap by tap half of each level."""
+    spec = SyntheticCameraSpec(fx=320.0, fy=320.0, cx=319.5, cy=239.5, width=640, height=480)
+    rgb = SyntheticBoxDataset(num_frames=120, cam=spec, radius=1.0, depth_noise=0.005, clutter=6).frame(20).rgb
+    with jax.disable_jit():
+        gray = jpyr.rgb_to_gray(jnp.asarray(rgb, jnp.float32))
+        jl = [np.asarray(x) for x in jpyr.build_pyramid(gray, 4, 1.2)]
+        jb = [np.asarray(jpyr.gaussian_blur(jnp.asarray(x))) for x in jl]
+    tl = [x.numpy() for x in tpyr.build_pyramid(_t(np.asarray(gray)), 4, 1.2)]
+    for a, b in zip(tl, jl):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(tl, jb):
+        np.testing.assert_array_equal(tpyr.gaussian_blur(_t(a)).numpy(), b)
+
+
 @pytest.mark.parametrize("cell,min_t,k", [(32, 7.0, 200), (0, 7.0, 150), (32, 0.0, 300), (16, 7.0, 64)])
 def test_fast_matches_jax_exactly(cell, min_t, k):
     """Same image in: score map, corners, subpixel uv and the valid mask
@@ -147,6 +185,24 @@ def test_detect_and_describe_matches_jax(kind):
     v = np.asarray(kj.valid)
     assert v.sum() >= 50
     assert np.abs(kt.angle.numpy() - np.asarray(kj.angle))[v].max() <= 1e-3
+    diff = _bits_differ(kt.desc.numpy(), np.asarray(kj.desc))[v]
+    assert (diff == 0).mean() >= 0.99 and diff.max() <= 8, diff
+
+
+def test_detect_and_describe_rgb_matches_jax():
+    """The colour entry point: grey conversion, then the same ORB (the
+    bounds of test_detect_and_describe_matches_jax)."""
+    spec = SyntheticCameraSpec(fx=160.0, fy=160.0, cx=159.5, cy=119.5, width=320, height=240)
+    rgb = SyntheticBoxDataset(num_frames=120, cam=spec, radius=1.0, depth_noise=0.005).frame(5).rgb
+    with jax.disable_jit():
+        kj = jorb.detect_and_describe_rgb(jnp.asarray(rgb, jnp.float32), JaxFeatureConfig(**FEAT_KW))
+    kt = torb.detect_and_describe_rgb(_t(np.asarray(rgb, np.float32)), FeatureConfig(**FEAT_KW))
+    np.testing.assert_array_equal(kt.valid.numpy(), np.asarray(kj.valid))
+    l0 = kt.level.numpy() == 0
+    np.testing.assert_array_equal(kt.uv.numpy()[l0], np.asarray(kj.uv)[l0])
+    assert np.abs(kt.uv.numpy() - np.asarray(kj.uv)).max() <= 1e-3
+    v = np.asarray(kj.valid)
+    assert v.sum() >= 50
     diff = _bits_differ(kt.desc.numpy(), np.asarray(kj.desc))[v]
     assert (diff == 0).mean() >= 0.99 and diff.max() <= 8, diff
 

@@ -44,6 +44,20 @@ def test_hamming_plain_equals_popcount_and_pallas(ka, kb):
     assert th.LAUNCHES == n0
 
 
+@pytest.mark.parametrize("ka,kb", [(1, 1), (130, 300), (0, 7), (257, 511)])
+def test_hamming_matrix_popcount_matches_jax(ka, kb):
+    """Exact int32 integers, through the port's Hamming function (the
+    plain version on CPU tensors; the kernel on the card)."""
+    rng = np.random.default_rng(ka * 7 + kb)
+    a, b = _desc(rng, ka), _desc(rng, kb)
+    if ka:
+        b[0] = a[0]
+    ref = np.asarray(jm.hamming_matrix_popcount(jnp.asarray(a), jnp.asarray(b)))
+    out = tm.hamming_matrix_popcount(_t(a), _t(b))
+    assert out.dtype == torch.int32 and out.shape == (ka, kb)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
 @pytest.mark.parametrize("ka,kb", [(1, 1), (130, 300), (300, 130), (257, 511), (64, 128)])
 def test_pm1_product_identity(ka, kb):
     """The identities the CUDA kernel and chip_smoke.py's library
