@@ -6,7 +6,7 @@
 Run from the root of the repository. Ten phases, two of the map
 readers (3b, 3c), the recorded-data path (2b, 3d-3h), training (11),
 the live robot path (12-15), and the parallel layer, JPEG encoding,
-the EVAL rows and the carried steps (16-20c), none of whose failures is caught; each prints its
+the EVAL rows, the carried steps and the pyramid shapes (16-20d), none of whose failures is caught; each prints its
 wall time:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
@@ -168,6 +168,11 @@ wall time:
      written by scripts/lockstep_torch_jax.py), and the first frame at
      which the card's discrete trace parts from each; reported, not
      gated;
+ 20d. at every input shape the port builds a pyramid for (640x480 and
+     672x376 at 8 levels, 320x240 at 4), a frame of the EVAL scene: every
+     level, its blur and the ORB keypoints (uv, valid, score,
+     descriptors) on the card equal to the CPU's bit for bit (no Hamming
+     launch);
  10. a JSON line of the kernels' numbers (launches summed over every
      path, 3d, 3e, 14-16, 18 and 20-20c included; times, bound and library
      time at the main path's shapes: the fuse kernel at frame 10, the
@@ -258,6 +263,10 @@ EVAL_ATE_TOL = 0.002
 LOCKSTEP_DISCRETE = ("tracked", "num_matches", "num_inliers", "inserted_keyframe", "relocalized",
                      "loop_cand", "loop_inliers", "loop_closed", "ba_dropped")
 LOCKSTEP_POSE_TOL = 1e-5
+# phase 20d: every pyramid the port builds ((width, height), levels) and
+# the ORB it feeds: the facade's default, the live cell's, the tests'
+PYRAMID_SHAPES = (((640, 480), 8, {}), (ZED_VGA, 8, dict(max_num_keypoints=1000, num_levels=3)),
+                  ((320, 240), 4, dict(max_num_keypoints=300, num_levels=4)))
 # dense stereo card vs CPU: `valid` may differ only where a sentinel cost
 # (1e9, summed in another order) reaches the decision, left of column
 # 2 D + 8; depth is the same float32 division where both are valid
@@ -2198,6 +2207,36 @@ def phase_ba1_row(card):
     return launches
 
 
+def phase_pyramid_shapes(card):
+    """20d: at every input shape the port builds a pyramid for (640x480
+    and 672x376 at 8 levels, 320x240 at 4), a frame of the EVAL scene:
+    every level, its blur and the ORB keypoints (uv, valid, score,
+    descriptors; VGA at the facade's default `FeatureConfig`, 672x376 at
+    the live cell's 1000 keypoints on 3 levels) on the card equal the
+    CPU's bit for bit."""
+    from ra_slam_tpu_torch.core.config import FeatureConfig
+    from ra_slam_tpu_torch.features.orb import detect_and_describe
+    from ra_slam_tpu_torch.features.pyramid import build_pyramid, gaussian_blur, rgb_to_gray
+    from ra_slam_tpu_torch.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
+
+    for (w, h), levels, feature_kw in PYRAMID_SHAPES:
+        fcfg, f = FeatureConfig(**feature_kw), w / 2.0
+        spec = SyntheticCameraSpec(fx=f, fy=f, cx=(w - 1) / 2.0, cy=(h - 1) / 2.0, width=w, height=h)
+        rgb = SyntheticBoxDataset(num_frames=120, cam=spec, radius=1.0, depth_noise=0.005, clutter=6).frame(1).rgb
+        gray = rgb_to_gray(torch.as_tensor(rgb))
+        lc, lg = build_pyramid(gray, levels), build_pyramid(gray.cuda(), levels)
+        parted = [i for i, (a, b) in enumerate(zip(lc, lg)) if not torch.equal(a, b.cpu())]
+        parted += [f"blur {i}" for i, (a, b) in enumerate(zip(lc, lg)) if not torch.equal(
+            gaussian_blur(a), gaussian_blur(b).cpu())]
+        kc, kg = detect_and_describe(gray, fcfg), detect_and_describe(gray.cuda(), fcfg)
+        parted += [k for k in ("uv", "valid", "score", "desc") if not torch.equal(getattr(kc, k), getattr(kg, k).cpu())]
+        print(f"{w}x{h} at {levels} levels: every level and its blur, and the ORB keypoints ({fcfg.num_levels} "
+              f"levels, {int(kc.valid.sum())} valid of {kc.capacity}), card against CPU: "
+              f"{'bit-equal' if not parted else f'{parted} differ'}; {card}")
+        if parted:
+            raise AssertionError(f"{w}x{h}: {parted} differ between the card and the CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -2257,6 +2296,7 @@ def main():
     eval_ham = phase("20", phase_eval_rows, card)
     carried_ham = phase("20b", phase_carried_steps, card)
     ba1_ham = phase("20c", phase_ba1_row, card)
+    phase("20d", phase_pyramid_shapes, card)
     launches += full_fuse + live_fuse + shard_fuse + scaling_fuse
     ham_launches += loop_launches + full_ham + stereo_launches + live_ham + eval_ham + carried_ham + ba1_ham
     print(f"the fuse kernel at one shard's shape (phase 16): {json.dumps(shard_numbers)}")

@@ -18,22 +18,33 @@ function that needs them).
 
 Subpackages
 -----------
-core      SE3/SO(3), pinhole camera, configuration dataclasses
-features  pyramid, FAST, ORB descriptors, descriptor matching
-io        RGB-D frame/dataset types, synthetic box-room dataset,
-          the trajectory file format, a PNG writer
+Each subpackage's `__init__` re-exports the names its JAX counterpart's
+does.
+
+core      SE3/SO(3), pinhole camera, configuration dataclasses, stereo
+          rectification
+features  pyramid, FAST, ORB descriptors, descriptor matching, stereo
+          keypoint depth and dense stereo
+io        RGB-D frame/dataset types, synthetic box-room dataset, logged
+          folders, ScanNet .sens files, PNG and JPEG codecs, cameras and
+          the capture tool
 map       block keys, spatial hash, the voxel map and its fusion step,
           raycast rendering, marching-tetrahedra meshing, the analytic
           box-room map
-ops       hand-written device kernels and their plain versions
-slam      landmarks, motion-only GN, tracking, keyframes, pose-graph
-          edges, loop detection, relocalization, SlamSystem
-models    segmentation engine (fake mode)
-pipeline  RaSlamSystem facade, offline_eval CLI, map viewer CLI
+ops       hand-written device kernels and their plain versions, resize
+slam      landmarks, motion-only GN, tracking, keyframes, bundle
+          adjustment, pose graph, loop detection, relocalization,
+          SlamSystem
+models    the segmentation UNet: inference engine and training step
+pipeline  RaSlamSystem facade, offline_eval CLI, live robot loop, map
+          viewer CLI, bench_scaling
+parallel  sharded TSDF fusion and export, distributed bundle adjustment,
+          multi-process wiring, the shard meshes
 eval      ATE/RPE, the tracking trajectory bench, PLY I/O, ScanNet
           semantic evaluation, the mesh-dump reader
 utils     pose buffer; map and SLAM state to and from the JAX package;
-          npz checkpoints
+          checkpoints, flax msgpack and flat YAML readers, logging and
+          profiling
 """
 
 __version__ = "0.1.0"

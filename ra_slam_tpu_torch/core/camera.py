@@ -37,6 +37,13 @@ class PinholeCamera:
             int(round(width * scale)), int(round(height * scale)),
         )
 
+    def matrix(self, device) -> torch.Tensor:
+        """[3, 3] float32 K matrix."""
+        return torch.tensor(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+            dtype=torch.float32, device=device,
+        )
+
     def project(self, pts_cam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Camera-frame points [..., 3] -> (pixel uv [..., 2], depth [...])."""
         z = pts_cam[..., 2]
@@ -51,7 +58,7 @@ class PinholeCamera:
         y = (uv[..., 1] - self.cy) / self.fy * depth
         return torch.stack([x, y, depth], dim=-1)
 
-    def pixel_grid(self, device="cpu") -> torch.Tensor:
+    def pixel_grid(self, device) -> torch.Tensor:
         """[H, W, 2] float32 grid of (u, v) pixel-center coordinates."""
         v, u = torch.meshgrid(
             torch.arange(self.height, dtype=torch.float32, device=device),

@@ -17,7 +17,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ra_slam_tpu_torch.features.orb import NUM_PAIRS
+from ra_slam_tpu_torch.features.orb import DESC_WORDS, NUM_PAIRS  # noqa: F401  (re-exports DESC_WORDS, as JAX does)
 from ra_slam_tpu_torch.ops.hamming import hamming_matrix
 
 

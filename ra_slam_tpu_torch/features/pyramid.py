@@ -10,17 +10,19 @@ antialias=True)` resamples differently, by up to 4e-3 of an intensity
 level at VGA: enough to flip FAST's threshold tests.)
 
 The JAX package contracts the image with the two weight matrices in one
-einsum, rows first where that is cheaper, each a matrix product that
-XLA's CPU backend sums as chains of fused multiply-adds along the
-contracted axis. A level one float32 step off moves a blurred pixel
-across a bf16 rounding boundary (BRIEF reads bf16) or breaks a FAST
-score tie, so the port sums each output's few nonzero taps in the same
-chains, emulating the fused multiply-add in float64 (the product is
-exact), on every device alike. On the EVAL scene's VGA frames every
-level equals the JAX package's op by op to the bit (two float32 matrix
-products left 7-35% of each level an ulp off); other shapes take one
-chain, unsplit. The blur adds its products as XLA's CPU convolution
-does: in pairs, the pairs in turn.
+einsum, rows first where that is cheaper: two matrix products that XLA's
+CPU backend sums each in its own order of fused multiply-adds (one chain
+along the contracted axis, or interleaved lanes added pairwise, split at
+a block start), an order that depends on all three sizes of the product.
+A level one float32 step off moves a blurred pixel across a bf16
+rounding boundary (BRIEF reads bf16) or breaks a FAST score tie, so the
+port sums each output's few nonzero taps in XLA's order (`_XLA_SUMS`,
+read off XLA by `scripts/probe_xla_sums.py`), emulating the fused
+multiply-add in float64 (the product is exact), on every device alike.
+Every level of the pyramids the port builds (640x480 and 672x376 at 8
+levels, 320x240 at 4) equals the JAX package's op by op to the bit;
+other shapes take one chain, unsplit. The blur adds its products as
+XLA's CPU convolution does: in pairs, the pairs in turn.
 """
 
 from __future__ import annotations
@@ -89,11 +91,15 @@ def _weight_mat(in_size: int, out_size: int) -> np.ndarray:
     x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
     w = np.maximum(f32(0.0), f32(1.0) - np.abs(x)).astype(f32)
     # column sums in XLA's CPU order: in turn within blocks of 32 rows,
-    # the block sums added in turn (measured exact at 640, 480 and 320
-    # rows; at 240 and 120 rows a few weights stay an ulp off)
+    # the block sums added in turn; where 32 does not divide the rows,
+    # the first and the last block share the other 32 + remainder evenly
+    # (measured exact at 672, 640, 480, 376, 320, 240, 150 and 120 rows)
+    rem = in_size % _SUM_BLOCK
+    first = (_SUM_BLOCK + rem) // 2 if rem else _SUM_BLOCK
+    edges = [0, *range(first, in_size, _SUM_BLOCK), in_size]
     total = np.zeros((1, out_size), f32)
-    for start in range(0, in_size, _SUM_BLOCK):
-        total = total + np.add.reduce(w[start:start + _SUM_BLOCK], axis=0, keepdims=True, dtype=f32)
+    for start, stop in zip(edges[:-1], edges[1:]):
+        total = total + np.add.reduce(w[start:stop], axis=0, keepdims=True, dtype=f32)
     w = np.where(
         np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps),
         w / np.where(total != 0, total, f32(1.0)),
@@ -103,55 +109,96 @@ def _weight_mat(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
-# How XLA's CPU dot sums the resamplings of a VGA pyramid, measured
-# against the JAX package op by op: (in, out) -> (chains, block starts).
-# Each output's taps run in `chains` interleaved fused multiply-add
-# chains (the even and the odd taps), restarted at each block start (the
-# dot's split of the contracted axis) and the partial sums added in
-# turn. Other shapes: one chain, no split.
+# How XLA's CPU dot sums each resampling of the pyramids the port runs
+# (640x480 at 8 levels, 672x376 at 8, 320x240 at 4), revealed product by
+# product by `scripts/probe_xla_sums.py` against the JAX package op by op
+# on an 8-core "Intel(R) Xeon(R) Processor" (lscpu): (in, out, other) ->
+# (lanes, block starts), `other` the length of the axis not contracted.
+# The contracted axis restarts at each block start; within a block, tap k
+# runs in lane (k - start) % lanes, each lane a chain of fused
+# multiply-adds; the lanes are added pairwise, ((l0 + l1) + (l2 + l3)),
+# and the block sums in turn. Each entry is the fewest lanes and splits
+# that give XLA's bits. Other products: one lane, no split.
 _XLA_SUMS = {
-    (480, 400): (1, (240,)), (480, 333): (1, (240,)), (480, 278): (1, (240,)),
-    (640, 533): (2, ()), (640, 444): (1, (512,)), (640, 370): (1, (512,)),
+    # 640x480: the rows, then the columns, of each level
+    (480, 400, 640): (1, (240,)), (640, 533, 400): (2, ()),
+    (480, 333, 640): (1, ()), (640, 444, 333): (1, (512,)),
+    (480, 278, 640): (1, (240,)), (640, 370, 278): (1, (512,)),
+    (480, 231, 640): (1, (240,)), (640, 309, 231): (1, (512,)),
+    (480, 193, 640): (1, (240,)), (640, 257, 193): (4, ()),
+    (480, 161, 640): (1, (240,)), (640, 214, 161): (2, ()),
+    (480, 134, 640): (1, (240,)), (640, 179, 134): (1, (512,)),
+    # 672x376 (the ZED's VGA mode)
+    (376, 313, 672): (1, (192,)), (672, 560, 313): (4, ()),
+    (376, 261, 672): (1, (192,)), (672, 467, 261): (2, ()),
+    (376, 218, 672): (1, (192,)), (672, 389, 218): (4, ()),
+    (376, 181, 672): (1, (192,)), (672, 324, 181): (4, ()),
+    (376, 151, 672): (1, (192,)), (672, 270, 151): (4, ()),
+    (376, 126, 672): (1, (192,)), (672, 225, 126): (4, ()),
+    (376, 105, 672): (1, (192,)), (672, 188, 105): (1, (512,)),
+    # 320x240
+    (240, 200, 320): (1, ()), (320, 267, 200): (4, ()),
+    (240, 167, 320): (1, ()), (320, 222, 167): (2, ()),
+    (240, 139, 320): (1, ()), (320, 185, 139): (1, ()),
 }
 
 
 @functools.lru_cache(maxsize=None)
-def _band(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(idx [T, out] int64, w [T, out] float32): each output's taps, the
-    run of inputs from its first to its last nonzero weight (zero weight
-    past the run)."""
+def _lane_taps(in_size: int, out_size: int, other: int) -> Tuple[Tuple[Tuple[np.ndarray, np.ndarray], ...], ...]:
+    """Per block, per lane: (idx [T, out] int64, w [T, out] float64), each
+    output's taps of that lane in order, padded with zero weights."""
+    lanes, starts = _XLA_SUMS.get((in_size, out_size, other), (1, ()))
     wm = _weight_mat(in_size, out_size)
     nz = wm != 0
     first = nz.argmax(0)
     last = in_size - 1 - nz[::-1].argmax(0)
-    t = np.arange(int((last - first).max()) + 1)[:, None]
-    idx = np.minimum(first[None] + t, in_size - 1)
-    w = np.where(first[None] + t <= last[None], np.take_along_axis(wm, idx, 0), np.float32(0.0))
-    return idx.astype(np.int64), w.astype(np.float32)
+    edges = [0, *starts, in_size]
+    blocks = []
+    for s, e in zip(edges[:-1], edges[1:]):
+        lo, hi = np.maximum(first, s), np.minimum(last, e - 1)
+        if (lo > hi).all():
+            continue
+        block = []
+        for c in range(lanes):
+            # the lane's first tap at or after lo, then every `lanes`-th
+            k0 = lo + (c - (lo - s)) % lanes
+            n = np.maximum((hi - k0) // lanes + 1, 0)
+            t = np.arange(max(int(n.max()), 1))[:, None]
+            k = k0[None] + lanes * t
+            live = t < n[None]
+            idx = np.where(live, k, 0)
+            block.append((idx.astype(np.int64), np.where(live, wm[idx, np.arange(out_size)], 0.0).astype(np.float64)))
+        blocks.append(tuple(block))
+    return tuple(blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_taps(in_size: int, out_size: int, other: int, device: torch.device):
+    """`_lane_taps` on `device`, uploaded once."""
+    return tuple(
+        tuple((torch.from_numpy(i).to(device), torch.from_numpy(w).to(device)) for i, w in block)
+        for block in _lane_taps(in_size, out_size, other)
+    )
+
+
+def _chain(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One lane: fused multiply-adds emulated in float64 (the product is
+    exact; one rounding to float32 a step)."""
+    acc = None
+    for t in range(idx.shape[0]):
+        prod = x[:, idx[t]].double() * w[t]
+        acc = prod.float() if acc is None else (prod + acc.double()).float()
+    return acc
 
 
 def _contract(x: torch.Tensor, in_size: int, out_size: int) -> torch.Tensor:
-    """x [..., in] -> [..., out] in XLA's sums (`_XLA_SUMS`): fused
-    multiply-adds emulated in float64 (the product is exact; one rounding
-    to float32 a step)."""
-    chains, starts = _XLA_SUMS.get((in_size, out_size), (1, ()))
-    idx_np, w_np = _band(in_size, out_size)
-    # block of each tap: how many block starts lie at or below its input
-    block_np = np.searchsorted(np.asarray(starts, np.int64), idx_np, side="right")
-    idx, w, block = (torch.from_numpy(a).to(x.device) for a in (idx_np, w_np, block_np))
+    """x [other, in] -> [other, out] in XLA's sums (`_XLA_SUMS`)."""
     out = None
-    for b in range(len(starts) + 1):
-        acc = [None] * chains
-        for t in range(idx.shape[0]):
-            wt = torch.where(block[t] == b, w[t], 0.0).double()
-            prod = x[..., idx[t]].double() * wt
-            c = t % chains
-            acc[c] = prod.float() if acc[c] is None else (prod + acc[c].double()).float()
-        part = acc[0]
-        for a in acc[1:]:
-            if a is not None:
-                part = part + a
-        out = part if out is None else out + part
+    for block in _device_taps(in_size, out_size, x.shape[0], x.device):
+        lanes = [_chain(x, idx, w) for idx, w in block]
+        while len(lanes) > 1:
+            lanes = [a + b for a, b in zip(lanes[::2], lanes[1::2])] + lanes[len(lanes) - len(lanes) % 2:]
+        out = lanes[0] if out is None else out + lanes[0]
     return out
 
 

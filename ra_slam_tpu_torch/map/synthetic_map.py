@@ -13,7 +13,9 @@ import numpy as np
 import torch
 
 from ra_slam_tpu_torch.core.config import TsdfConfig
-from ra_slam_tpu_torch.map.blocks import BLOCK_LEN, pack_block_coords, unpack_block_coords, voxel_offsets
+from ra_slam_tpu_torch.map.blocks import (  # noqa: F401  (re-exports INVALID_KEY, as JAX does)
+    BLOCK_LEN, INVALID_KEY, pack_block_coords, unpack_block_coords, voxel_offsets,
+)
 from ra_slam_tpu_torch.map.voxel_map import VoxelMap, _div, allocate_keys, create_map
 
 

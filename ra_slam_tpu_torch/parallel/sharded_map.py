@@ -35,7 +35,9 @@ import numpy as np
 import torch
 
 from ra_slam_tpu_torch.core.config import TsdfConfig
-from ra_slam_tpu_torch.map.blocks import INVALID_KEY, owner_of, owner_slab, unpack_block_coords
+from ra_slam_tpu_torch.map.blocks import (  # noqa: F401  (re-exports BLOCK_LEN, as JAX does)
+    BLOCK_LEN, INVALID_KEY, owner_of, owner_slab, unpack_block_coords,
+)
 from ra_slam_tpu_torch.map.hash_table import HashTable, ht_insert
 from ra_slam_tpu_torch.map.meshing import _mesh_arrays, emit_budgeted, extract_mesh
 from ra_slam_tpu_torch.map.voxel_map import (

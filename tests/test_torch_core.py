@@ -111,6 +111,6 @@ def test_se3_as_matrix34_exact():
 def test_camera_pixel_grid_exact():
     jc = JaxCamera.create(80.0, 80.0, 79.5, 59.5, 160, 120)
     tc = PinholeCamera.create(80.0, 80.0, 79.5, 59.5, 160, 120)
-    g = tc.pixel_grid()
+    g = tc.pixel_grid("cpu")
     assert g.dtype == torch.float32 and g.shape == (120, 160, 2)
     np.testing.assert_array_equal(np.asarray(jc.pixel_grid()), g.numpy())

@@ -70,20 +70,22 @@ def test_pyramid_and_blur_match_jax(kind):
 
 
 def test_resample_weights_equal_jax():
-    """The resampling weights of every level of a VGA pyramid (the EVAL
-    scene's) equal `jax.image.resize`'s exactly: their column sums run in
-    XLA's CPU order, blocks of 32 rows. (Summed in turn, 12 of the 341,120
-    weights at 640 -> 533 were an ulp off. Inputs of 240 or 120 rows
-    follow neither order: up to 20 weights of a matrix stay an ulp off.)"""
+    """The resampling weights of every level of every pyramid the port
+    builds (640x480 and 672x376 at 8 levels, 320x240 at 4) equal
+    `jax.image.resize`'s exactly: their column sums run in XLA's CPU
+    order, blocks of 32 rows, the first and the last sharing the rest
+    where 32 does not divide the rows. (Summed in turn, 12 of the 341,120
+    weights at 640 -> 533 were an ulp off; in blocks of 32 from row 0, up
+    to 65 weights of a matrix at 376 rows and 20 at 240.)"""
     from jax._src.image import scale
 
-    W, H = 640, 480
-    for h, w in tpyr.pyramid_shapes(H, W, 4, 1.2)[1:]:
-        for i, o in ((H, h), (W, w)):
-            with jax.disable_jit():
-                ref = np.asarray(scale.compute_weight_mat(i, o, o / i, 0.0, scale._kernels[scale.ResizeMethod.LINEAR],
-                                                          True))
-            np.testing.assert_array_equal(tpyr._weight_mat(i, o), ref, err_msg=f"{i} -> {o}")
+    for W, H, levels in ((640, 480, 8), (672, 376, 8), (320, 240, 4)):
+        for h, w in tpyr.pyramid_shapes(H, W, levels, 1.2)[1:]:
+            for i, o in ((H, h), (W, w)):
+                with jax.disable_jit():
+                    ref = np.asarray(scale.compute_weight_mat(
+                        i, o, o / i, 0.0, scale._kernels[scale.ResizeMethod.LINEAR], True))
+                np.testing.assert_array_equal(tpyr._weight_mat(i, o), ref, err_msg=f"{i} -> {o}")
 
 
 def test_vga_pyramid_follows_xla_sums():
@@ -105,6 +107,15 @@ def test_vga_pyramid_follows_xla_sums():
         np.testing.assert_array_equal(a, b)
     for a, b in zip(tl, jb):
         np.testing.assert_array_equal(tpyr.gaussian_blur(_t(a)).numpy(), b)
+
+
+def test_pyramid_320x240_follows_xla_sums():
+    """The parity tests' 320x240 pyramid at 4 levels, on noise and a frame
+    of the EVAL scene: every level and its blur bit-equal to the JAX
+    package's op by op (tests/test_torch_pyramid_shapes.py)."""
+    from test_torch_pyramid_shapes import check_pyramid
+
+    check_pyramid(320, 240, 4)
 
 
 @pytest.mark.parametrize("cell,min_t,k", [(32, 7.0, 200), (0, 7.0, 150), (32, 0.0, 300), (16, 7.0, 64)])
