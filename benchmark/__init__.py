@@ -1,0 +1,2 @@
+"""The benchmark of the PyTorch and CUDA port, `ra_slam_tpu_torch`: `python3
+benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>`."""

@@ -1,0 +1,13 @@
+"""`device_idle.track`: the share of the traced stretch, in percent, in
+which no operation ran on the device: 100 (1 - busy / window), busy the
+union of the profiler's device-event intervals. Source: device trace.
+Moves `track_ms_p95`."""
+
+SOURCE, UNIT, MOVES = "device_trace", "%", "track_ms_p95"
+
+
+def read(out, cell):
+    tr = out.get("trace")
+    if tr is None or tr.window_s <= 0 or tr.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
