@@ -30,6 +30,7 @@ from ra_slam_tpu_torch.core.camera import to_i32
 from ra_slam_tpu_torch.core.config import FeatureConfig
 from ra_slam_tpu_torch.features.fast import fast_corners
 from ra_slam_tpu_torch.features.pyramid import build_pyramid, gaussian_blur, rgb_to_gray
+from ra_slam_tpu_torch.utils.profiling import TRACE
 
 PATCH_RADIUS = 15  # 31x31 orientation / descriptor patch
 NUM_PAIRS = 256
@@ -134,18 +135,20 @@ def keypoint_capacity(cfg: FeatureConfig) -> int:
 def detect_and_describe(gray: torch.Tensor, cfg: FeatureConfig) -> Keypoints:
     """ORB on one [H, W] float32 grayscale image: pyramid -> FAST ->
     orientation -> steered BRIEF, `keypoint_capacity(cfg)` slots."""
-    levels = build_pyramid(gray, cfg.num_levels, cfg.scale_factor)
-    parts = []
-    for lvl, (img, quota) in enumerate(zip(levels, level_quotas(cfg))):
-        uv, score, valid = fast_corners(
-            img, float(cfg.ini_fast_threshold), quota,
-            min_threshold=float(cfg.min_fast_threshold),
-            cell_size=int(cfg.cell_size),
-        )
-        ang, desc = _patch_features(gaussian_blur(img), uv)
-        level = torch.full((quota,), lvl, dtype=torch.int32, device=gray.device)
-        parts.append((uv * cfg.scale_factor**lvl, level, score, ang, desc, valid))
-    return Keypoints(*(torch.cat(list(p)) for p in zip(*parts)))
+    with TRACE.span("orb.pyramid"):
+        levels = build_pyramid(gray, cfg.num_levels, cfg.scale_factor)
+    with TRACE.span("orb.levels"):
+        parts = []
+        for lvl, (img, quota) in enumerate(zip(levels, level_quotas(cfg))):
+            uv, score, valid = fast_corners(
+                img, float(cfg.ini_fast_threshold), quota,
+                min_threshold=float(cfg.min_fast_threshold),
+                cell_size=int(cfg.cell_size),
+            )
+            ang, desc = _patch_features(gaussian_blur(img), uv)
+            level = torch.full((quota,), lvl, dtype=torch.int32, device=gray.device)
+            parts.append((uv * cfg.scale_factor**lvl, level, score, ang, desc, valid))
+        return Keypoints(*(torch.cat(list(p)) for p in zip(*parts)))
 
 
 def detect_and_describe_rgb(rgb: torch.Tensor, cfg: FeatureConfig) -> Keypoints:

@@ -33,6 +33,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ra_slam_tpu_torch.utils.profiling import TRACE
+
 _NVJPEG_OUTPUT_RGBI = 5  # nvjpegOutputFormat_t: interleaved RGB
 _NVJPEG_CSS_420 = 2  # nvjpegChromaSubsampling_t
 _STATE: Dict[str, object] = {}
@@ -123,28 +125,31 @@ def decode_jpeg(data: bytes, device="cuda") -> torch.Tensor:
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"nvjpeg decodes into CUDA memory, not {device}")
-    lib, handle, state = _nvjpeg()
-    data = bytes(data)
-    ncomp, subsampling = ctypes.c_int(), ctypes.c_int()
-    widths, heights = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
-    with _LOCK:
-        _check(lib.nvjpegGetImageInfo(handle, data, len(data), ctypes.byref(ncomp),
-                                      ctypes.byref(subsampling), widths, heights), "nvjpegGetImageInfo")
-        h, w = heights[0], widths[0]
-        with torch.cuda.device(device):
-            out = torch.empty((h, w, 3), dtype=torch.uint8, device=device)
-            img = _Image()
-            img.channel[0] = out.data_ptr()
-            img.pitch[0] = w * 3
-            stream = torch.cuda.current_stream(device)
-            _check(lib.nvjpegDecode(handle, state, data, len(data), _NVJPEG_OUTPUT_RGBI,
-                                    ctypes.byref(img), ctypes.c_void_p(stream.cuda_stream)), "nvjpegDecode")
-    return out
+    with TRACE.span("jpeg.decode"):
+        lib, handle, state = _nvjpeg()
+        data = bytes(data)
+        ncomp, subsampling = ctypes.c_int(), ctypes.c_int()
+        widths, heights = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
+        with _LOCK:
+            _check(lib.nvjpegGetImageInfo(handle, data, len(data), ctypes.byref(ncomp),
+                                          ctypes.byref(subsampling), widths, heights), "nvjpegGetImageInfo")
+            h, w = heights[0], widths[0]
+            with torch.cuda.device(device):
+                out = torch.empty((h, w, 3), dtype=torch.uint8, device=device)
+                img = _Image()
+                img.channel[0] = out.data_ptr()
+                img.pitch[0] = w * 3
+                stream = torch.cuda.current_stream(device)
+                _check(lib.nvjpegDecode(handle, state, data, len(data), _NVJPEG_OUTPUT_RGBI,
+                                        ctypes.byref(img), ctypes.c_void_p(stream.cuda_stream)), "nvjpegDecode")
+        return out
 
 
 def decode_jpeg_numpy(data: bytes) -> np.ndarray:
     """`decode_jpeg` on the current CUDA device, copied to the host."""
-    return decode_jpeg(data).cpu().numpy()
+    img = decode_jpeg(data)
+    with TRACE.wait("jpeg.to_host"):
+        return img.cpu().numpy()
 
 
 def _encoder(lib, handle, quality: int):

@@ -50,6 +50,7 @@ from ra_slam_tpu_torch.core.camera import PinholeCamera
 from ra_slam_tpu_torch.io.dataset import Frame, RGBDDataset
 from ra_slam_tpu_torch.io.png import decode_png, encode_png
 from ra_slam_tpu_torch.ops.resize import resize_linear, resize_nearest
+from ra_slam_tpu_torch.utils.profiling import TRACE
 
 COLOR_RAW, COLOR_PNG, COLOR_JPEG = 0, 1, 2
 DEPTH_RAW_USHORT, DEPTH_ZLIB_USHORT, DEPTH_OCCI_USHORT = 0, 1, 2
@@ -158,20 +159,19 @@ class SensReader(RGBDDataset):
         return np.frombuffer(blob, "<u2").reshape(self.depth_height, self.depth_width)
 
     def frame(self, idx: int) -> Frame:
-        rgb = self._raw_color(idx)
-        if rgb.shape[:2] != (self._out_h, self._out_w):
-            rgb = resize_linear(torch.from_numpy(np.ascontiguousarray(rgb)), self._out_w, self._out_h).numpy()
-        depth_raw = self._raw_depth(idx)
-        if depth_raw.shape != (self._out_h, self._out_w):
-            d = torch.from_numpy(depth_raw.astype(np.int32))
-            depth_raw = resize_nearest(d, self._out_w, self._out_h).numpy().astype(np.uint16)
-        return Frame(
-            frame_id=idx,
-            timestamp=self._ts[idx],
-            rgb=rgb,
-            depth=depth_raw.astype(np.float32) / self.depth_shift,
-            cam_T_world=self.pose(idx),
-        )
+        with TRACE.span("sens.frame"):
+            with TRACE.span("sens.color"):
+                rgb = self._raw_color(idx)
+            if rgb.shape[:2] != (self._out_h, self._out_w):
+                with TRACE.span("sens.resize"):
+                    rgb = resize_linear(torch.from_numpy(np.ascontiguousarray(rgb)), self._out_w, self._out_h).numpy()
+            with TRACE.span("sens.depth"):
+                depth_raw = self._raw_depth(idx)
+                if depth_raw.shape != (self._out_h, self._out_w):
+                    d = torch.from_numpy(depth_raw.astype(np.int32))
+                    depth_raw = resize_nearest(d, self._out_w, self._out_h).numpy().astype(np.uint16)
+                depth = depth_raw.astype(np.float32) / self.depth_shift
+            return Frame(frame_id=idx, timestamp=self._ts[idx], rgb=rgb, depth=depth, cam_T_world=self.pose(idx))
 
     def prefetch(self, num_threads: int = 2, capacity: int = 8) -> Iterator[Frame]:
         """Iterate the frames in order, decoded ahead by `num_threads`

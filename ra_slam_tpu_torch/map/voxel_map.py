@@ -46,6 +46,7 @@ from ra_slam_tpu_torch.map.blocks import (
 )
 from ra_slam_tpu_torch.map.hash_table import HashTable, ht_insert, ht_lookup, ht_remove
 from ra_slam_tpu_torch.ops.tsdf_fuse import tsdf_fuse_
+from ra_slam_tpu_torch.utils.profiling import TRACE
 
 _I32 = torch.int32
 
@@ -454,13 +455,16 @@ def integrate(
     per-block min).
     """
     H, W = depth_img.shape
-    pix, z_cam, d2r, gate = integrate_prep(
-        m, vis_idx, vis_mask, H, W, cam, cam_T_world, cfg
-    )
-    img6 = image_planes(rgb_img, depth_img, ht_img, lt_img)
-    minabs = tsdf_fuse_(m, vis_idx, vis_mask, img6, pix, z_cam, d2r, gate, cfg)
+    with TRACE.span("map.prep"):
+        pix, z_cam, d2r, gate = integrate_prep(
+            m, vis_idx, vis_mask, H, W, cam, cam_T_world, cfg
+        )
+        img6 = image_planes(rgb_img, depth_img, ht_img, lt_img)
+    with TRACE.span("map.fuse"):
+        minabs = tsdf_fuse_(m, vis_idx, vis_mask, img6, pix, z_cam, d2r, gate, cfg)
     if carve:
-        _release_rows(m, vis_idx, vis_mask & (minabs >= cfg.carve_threshold))
+        with TRACE.span("map.carve"):
+            _release_rows(m, vis_idx, vis_mask & (minabs >= cfg.carve_threshold))
     return m
 
 
@@ -504,12 +508,15 @@ def integrate_frame(
 ) -> Tuple[VoxelMap, dict]:
     """allocate -> cull -> integrate -> carve: one fused-map frame, in
     place. Returns the map and int32 scalar stats tensors."""
-    m = allocate_from_depth(m, depth_img, cam, cam_T_world, cfg, alloc_stride)
-    vis_idx, vis_mask, vis_count = visible_blocks(m, cam, cam_T_world, cfg)
-    m = integrate(
-        m, vis_idx, vis_mask, rgb_img, depth_img, ht_img, lt_img,
-        cam, cam_T_world, cfg, carve=carve,
-    )
+    with TRACE.span("map.integrate_frame"):
+        with TRACE.span("map.allocate"):
+            m = allocate_from_depth(m, depth_img, cam, cam_T_world, cfg, alloc_stride)
+        with TRACE.span("map.cull"):
+            vis_idx, vis_mask, vis_count = visible_blocks(m, cam, cam_T_world, cfg)
+        m = integrate(
+            m, vis_idx, vis_mask, rgb_img, depth_img, ht_img, lt_img,
+            cam, cam_T_world, cfg, carve=carve,
+        )
     stats = {
         "num_active": num_active(m),
         "num_visible": vis_count,

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ra_slam_tpu_torch.ops.resize import resize_linear
+from ra_slam_tpu_torch.utils.profiling import TRACE
 
 DEFAULT_WIDTHS = (32, 64, 128, 256)
 GN_EPS = 1e-6  # flax's GroupNorm epsilon (torch's default is 1e-5)
@@ -235,20 +236,21 @@ class InferenceEngine:
     def segment(self, rgb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ht, lt) float32 maps on the engine's device at its size, of
         an [H, W, 3] uint8 or float RGB tensor."""
-        if self.fake:
-            ones = torch.ones((self.height, self.width), dtype=torch.float32, device=self.device)
-            return ones, ones.clone()
-        rgb = rgb.to(self.device)
-        h, w = rgb.shape[:2]
-        ph, pw = _pad_to_multiple(h, w)
-        x = rgb.to(torch.float32) / 255.0
-        x = F.pad(x.permute(2, 0, 1), (0, pw - w, 0, ph - h))[None]
-        prob = torch.softmax(self.forward(x), dim=1)
-        ht, lt = prob[0, 0, :h, :w], prob[0, 1, :h, :w]
-        if (h, w) != (self.height, self.width):
-            ht = resize_linear(ht.contiguous(), self.width, self.height)
-            lt = resize_linear(lt.contiguous(), self.width, self.height)
-        return ht, lt
+        with TRACE.span("seg.segment"):
+            if self.fake:
+                ones = torch.ones((self.height, self.width), dtype=torch.float32, device=self.device)
+                return ones, ones.clone()
+            rgb = rgb.to(self.device)
+            h, w = rgb.shape[:2]
+            ph, pw = _pad_to_multiple(h, w)
+            x = rgb.to(torch.float32) / 255.0
+            x = F.pad(x.permute(2, 0, 1), (0, pw - w, 0, ph - h))[None]
+            prob = torch.softmax(self.forward(x), dim=1)
+            ht, lt = prob[0, 0, :h, :w], prob[0, 1, :h, :w]
+            if (h, w) != (self.height, self.width):
+                ht = resize_linear(ht.contiguous(), self.width, self.height)
+                lt = resize_linear(lt.contiguous(), self.width, self.height)
+            return ht, lt
 
     def infer_one(self, rgb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """[H, W, 3] uint8/float RGB -> (ht, lt) float32 numpy maps at

@@ -20,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 
+from ra_slam_tpu_torch.utils.profiling import TRACE
+
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "ra_slam_tpu_torch"
@@ -35,6 +37,7 @@ NVCC_FLAGS = (
 
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}  # name -> seconds nvcc took in this process
+TRACE.expose("build.seconds", lambda: dict(BUILD_SECONDS))
 _LOCKS = {}  # name -> lock: threads of one process build a library once
 _LOCKS_LOCK = threading.Lock()
 
@@ -81,10 +84,11 @@ def _build(name: str) -> ctypes.CDLL:
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f".lib{name}.{os.getpid()}.so"
         t0 = time.perf_counter()
-        r = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
-            capture_output=True, text=True,
-        )
+        with TRACE.span(f"build.{name}"):
+            r = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+                capture_output=True, text=True,
+            )
         if r.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {name}.cu:\n{r.stdout}\n{r.stderr}")
         (out_dir / "build.log").write_text(r.stdout + r.stderr)

@@ -18,10 +18,12 @@ import ctypes
 import torch
 
 from ra_slam_tpu_torch.ops._build import load_library
+from ra_slam_tpu_torch.utils.profiling import TRACE
 
 WORDS = 8
 
 LAUNCHES = 0  # kernel launches made by hamming_matrix (CUDA path only)
+TRACE.expose("hamming.launches", lambda: LAUNCHES)
 
 
 def _check(desc_a: torch.Tensor, desc_b: torch.Tensor) -> None:

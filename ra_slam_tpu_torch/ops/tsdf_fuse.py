@@ -23,10 +23,12 @@ import threading
 import torch
 
 from ra_slam_tpu_torch.ops._build import load_library
+from ra_slam_tpu_torch.utils.profiling import TRACE
 
 VOXELS = 512
 
 LAUNCHES = 0  # kernel launches made by tsdf_fuse_ (CUDA path only)
+TRACE.expose("tsdf_fuse.launches", lambda: LAUNCHES)
 _COUNT_LOCK = threading.Lock()  # the shards of a LocalMesh launch from threads
 
 

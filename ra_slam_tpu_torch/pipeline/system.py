@@ -46,6 +46,7 @@ from ra_slam_tpu_torch.map.voxel_map import (
 from ra_slam_tpu_torch.models.segmentation import InferenceEngine
 from ra_slam_tpu_torch.ops.resize import resize_linear, resize_nearest
 from ra_slam_tpu_torch.slam.system import SlamSystem
+from ra_slam_tpu_torch.utils.profiling import TRACE
 
 
 def resolve_device(device) -> torch.device:
@@ -118,7 +119,7 @@ class RaSlamSystem:
         buffer only when tracking succeeded."""
         if self.slam is None:
             raise RuntimeError("tracking disabled")
-        with self._lock:
+        with TRACE.span("facade.feed_tracking"), self._lock:
             return self.slam.feed_rgbd_frame(rgb, depth, timestamp, pose_hint=pose_hint)
 
     def feed_stereo_frame(self, left: np.ndarray, right: np.ndarray, timestamp: float,
@@ -126,7 +127,7 @@ class RaSlamSystem:
         """The rectified stereo tracking-camera path."""
         if self.slam is None:
             raise RuntimeError("tracking disabled")
-        with self._lock:
+        with TRACE.span("facade.feed_stereo"), self._lock:
             return self.slam.feed_stereo_frame(left, right, timestamp, pose_hint=pose_hint)
 
     def feed_rgbd_frame(
@@ -143,6 +144,10 @@ class RaSlamSystem:
         frame is fused at the tracked pose of its timestamp, and skipped
         while tracking is lost or before any pose. Returns the integrate
         stats as ints (or {"skipped": why})."""
+        with TRACE.span("facade.feed_rgbd"):
+            return self._feed_rgbd(rgb, depth, timestamp, pose, ht, lt)
+
+    def _feed_rgbd(self, rgb, depth, timestamp: float, pose: Optional[SE3], ht, lt) -> dict:
         tsdf = self.cfg.tsdf
         if pose is None:
             if self.slam is None:
@@ -156,13 +161,14 @@ class RaSlamSystem:
             pose = SE3(pose.R.to(self.device, torch.float32), pose.t.to(self.device, torch.float32))
             if self.extrinsics is not None:
                 pose = self.extrinsics @ pose
-        rgb = np.asarray(rgb)
-        rgb_t = torch.as_tensor(rgb if rgb.dtype == np.uint8 else rgb.astype(np.float32)).to(self.device)
-        depth_t = self._tensor(depth)
-        if rgb_t.shape[:2] != (tsdf.height, tsdf.width):
-            rgb_t = resize_linear(rgb_t, tsdf.width, tsdf.height)
-        if depth_t.shape != (tsdf.height, tsdf.width):
-            depth_t = resize_nearest(depth_t, tsdf.width, tsdf.height)
+        with TRACE.span("facade.upload"):
+            rgb = np.asarray(rgb)
+            rgb_t = torch.as_tensor(rgb if rgb.dtype == np.uint8 else rgb.astype(np.float32)).to(self.device)
+            depth_t = self._tensor(depth)
+            if rgb_t.shape[:2] != (tsdf.height, tsdf.width):
+                rgb_t = resize_linear(rgb_t, tsdf.width, tsdf.height)
+            if depth_t.shape != (tsdf.height, tsdf.width):
+                depth_t = resize_nearest(depth_t, tsdf.width, tsdf.height)
         if ht is None or lt is None:
             ht_t, lt_t = self.seg.segment(rgb_t)
         else:
@@ -174,7 +180,8 @@ class RaSlamSystem:
                 self.tsdf_cam, pose, tsdf, alloc_stride=self.alloc_stride,
             )
             self.num_integrated += 1
-            self.last_stats = {k: int(v) for k, v in stats.items()}
+            with TRACE.wait("facade.stats"):
+                self.last_stats = {k: int(v) for k, v in stats.items()}
             return self.last_stats
 
     def query_camera_pose(self, timestamp: float) -> Optional[SE3]:

@@ -63,22 +63,27 @@ from ra_slam_tpu_torch.slam.tracker import (
     track_frame,
 )
 from ra_slam_tpu_torch.utils.pose_buffer import PoseBuffer
+from ra_slam_tpu_torch.utils.profiling import TRACE
 
 SYNCS = 0  # host reads of device values in slam_frame_step
+TRACE.expose("slam.syncs", lambda: SYNCS)
 
 
 def _host_bool(t: torch.Tensor) -> bool:
-    """Read a device boolean on the host (waits for the device)."""
+    """Read a device boolean on the host (waits for the device; a
+    `wait` span named after the reading stage)."""
     global SYNCS
     SYNCS += 1
-    return bool(t)
+    with TRACE.wait():
+        return bool(t)
 
 
 def _host_int(t: torch.Tensor) -> int:
     """Read a device integer on the host (waits for the device)."""
     global SYNCS
     SYNCS += 1
-    return int(t)
+    with TRACE.wait():
+        return int(t)
 
 
 @dataclass(frozen=True)
@@ -153,7 +158,8 @@ class FrameInfo:
 
     def _pull(self) -> dict:
         if self._host is None:
-            vals = torch.stack([self._dev[k].to(torch.float64) for k in _INFO_FIELDS]).cpu().numpy()
+            with TRACE.wait("frame_info.pull"):
+                vals = torch.stack([self._dev[k].to(torch.float64) for k in _INFO_FIELDS]).cpu().numpy()
             self._host = dict(zip(_INFO_FIELDS, vals.tolist()))
         return self._host
 
@@ -245,10 +251,11 @@ def _loop_close_step(state: SlamState, loop: LoopCandidate, query_slot, p: StepP
     )
     old_R, old_t = state.kfs.R, state.kfs.t
     old_kf = _newest_kf(state)
-    kfs, pgo_stats = optimize_pose_graph(
-        state.kfs, state.edges, state.track.kf_counter,
-        max_nodes=state.kfs.capacity, iterations=p.pgo_iterations,
-    )
+    with TRACE.span("slam.pgo"):
+        kfs, pgo_stats = optimize_pose_graph(
+            state.kfs, state.edges, state.track.kf_counter,
+            max_nodes=state.kfs.capacity, iterations=p.pgo_iterations,
+        )
     q = query_slot.long()
     pgo_shift = torch.linalg.vector_norm(kfs.t[q] - old_t[q])
     lms = correct_landmarks(state.track.lms, old_R, old_t, kfs)
@@ -328,7 +335,8 @@ def _close(s: SlamState, loop: LoopCandidate, new_slot, cam, p: StepParams):
     s, pgo_shift, _ = _loop_close_step(s, loop, new_slot, p)
     gba_rmse = None
     if p.gba_after_loop:
-        s, gba_rmse = _gba_step(s, cam, p)
+        with TRACE.span("slam.gba"):
+            s, gba_rmse = _gba_step(s, cam, p)
     if p.reassoc_mode:
         kfs, _ = refresh_observations(s.kfs, s.track.lms, cam, p.reassoc_gate, p.reassoc_mode)
         s = dataclasses.replace(s, kfs=kfs)
@@ -361,49 +369,58 @@ def slam_frame_step(
     )
 
     if not _host_bool(state.track.initialized):
-        track, lm_idx, obs_z = initialize_from_frame(state.track, kp, depth, cam, pose0, tcfg)
-        obs_w = (kp.valid & (lm_idx >= 0)).to(torch.float32)
-        kfs = insert_keyframe(state.kfs, i0, track.pose, fid, ts, lm_idx, kp.uv, obs_w, kp.desc, obs_z)
-        state = _record_stats(dataclasses.replace(state, track=track, kfs=kfs))
+        with TRACE.span("slam.init"):
+            track, lm_idx, obs_z = initialize_from_frame(state.track, kp, depth, cam, pose0, tcfg)
+            obs_w = (kp.valid & (lm_idx >= 0)).to(torch.float32)
+            kfs = insert_keyframe(state.kfs, i0, track.pose, fid, ts, lm_idx, kp.uv, obs_w, kp.desc, obs_z)
+        with TRACE.span("slam.record"):
+            state = _record_stats(dataclasses.replace(state, track=track, kfs=kfs))
         info.update(inserted_keyframe=~f)
         return state, FrameInfo(track.pose.R, track.pose.t, tracked=~f, **info)
 
-    track, res = track_frame(state.track, kp, depth, cam, tcfg)
+    with TRACE.span("slam.track"):
+        track, res = track_frame(state.track, kp, depth, cam, tcfg)
     state = dataclasses.replace(state, track=track)
     info.update(
         num_inliers=res.num_inliers, num_matches=res.num_matches,
         track_rmse=res.rmse, jump_t=res.jump_t, jump_r=res.jump_r,
     )
     if _host_bool(track.lost):
-        state, info["relocalized"] = _reloc_step(state, kp, cam, tcfg, p)
+        with TRACE.span("slam.reloc"):
+            state, info["relocalized"] = _reloc_step(state, kp, cam, tcfg, p)
 
     if _host_bool(res.need_keyframe):
-        slot = state.track.kf_counter
-        track2, obs_lm, obs_z = insert_keyframe_landmarks(state.track, kp, depth, res.lm_idx, cam, tcfg)
-        # a tracked match is a keyframe observation only if GN kept it
-        track_ok = torch.where(res.lm_idx >= 0, res.inlier, True)
-        obs_w = (kp.valid & (obs_lm >= 0) & track_ok).to(torch.float32)
-        kfs = insert_keyframe(state.kfs, slot, track2.pose, fid, ts, obs_lm, kp.uv, obs_w, kp.desc, obs_z)
-        state = dataclasses.replace(state, track=track2, kfs=kfs)
-        kfc = track2.kf_counter
-        prev, new_slot = torch.clamp(kfc - 2, min=0), kfc - 1
-        z = odometry_edge(kfs.pose(prev.long()), kfs.pose(new_slot.long()))
-        state = _maybe_add_edge(state, kfc >= 2, prev, new_slot, z, 1.0)
-        info.update(inserted_keyframe=~f)
-        if p.ba_every_kf == 1 or (p.ba_every_kf > 1 and _host_bool(kfc % p.ba_every_kf == 0)):
-            state, ba_rmse, ba_dropped, ba_shift = _ba_step(state, cam, p)
-            info.update(ba_rmse=ba_rmse, ba_dropped=ba_dropped, ba_shift=ba_shift)
-        if _host_bool((kfc % p.loop_every_kf == 0) & (kfc >= 2)):
-            state, loop, close_now, (cand, inl, rmse, dt, dr) = _loop_check(state, new_slot, cam, tcfg, p)
-            info.update(loop_cand=cand, loop_inliers=inl, loop_rmse=rmse, loop_delta_t=dt, loop_delta_r=dr)
-            if _host_bool(close_now):
-                state, gba_rmse, pgo_shift = _close(state, loop, new_slot, cam, p)
-                info.update(loop_closed=~f, pgo_shift=pgo_shift)
-                if gba_rmse is not None:
-                    # a closure reports its global BA's rmse (JAX's merge)
-                    info.update(ba_rmse=torch.where(torch.isnan(gba_rmse), info["ba_rmse"], gba_rmse))
+        with TRACE.span("slam.keyframe"):
+            slot = state.track.kf_counter
+            track2, obs_lm, obs_z = insert_keyframe_landmarks(state.track, kp, depth, res.lm_idx, cam, tcfg)
+            # a tracked match is a keyframe observation only if GN kept it
+            track_ok = torch.where(res.lm_idx >= 0, res.inlier, True)
+            obs_w = (kp.valid & (obs_lm >= 0) & track_ok).to(torch.float32)
+            kfs = insert_keyframe(state.kfs, slot, track2.pose, fid, ts, obs_lm, kp.uv, obs_w, kp.desc, obs_z)
+            state = dataclasses.replace(state, track=track2, kfs=kfs)
+            kfc = track2.kf_counter
+            prev, new_slot = torch.clamp(kfc - 2, min=0), kfc - 1
+            z = odometry_edge(kfs.pose(prev.long()), kfs.pose(new_slot.long()))
+            state = _maybe_add_edge(state, kfc >= 2, prev, new_slot, z, 1.0)
+            info.update(inserted_keyframe=~f)
+            if p.ba_every_kf == 1 or (p.ba_every_kf > 1 and _host_bool(kfc % p.ba_every_kf == 0)):
+                with TRACE.span("slam.ba"):
+                    state, ba_rmse, ba_dropped, ba_shift = _ba_step(state, cam, p)
+                info.update(ba_rmse=ba_rmse, ba_dropped=ba_dropped, ba_shift=ba_shift)
+            if _host_bool((kfc % p.loop_every_kf == 0) & (kfc >= 2)):
+                with TRACE.span("slam.loop_check"):
+                    state, loop, close_now, (cand, inl, rmse, dt, dr) = _loop_check(state, new_slot, cam, tcfg, p)
+                info.update(loop_cand=cand, loop_inliers=inl, loop_rmse=rmse, loop_delta_t=dt, loop_delta_r=dr)
+                if _host_bool(close_now):
+                    with TRACE.span("slam.close"):
+                        state, gba_rmse, pgo_shift = _close(state, loop, new_slot, cam, p)
+                    info.update(loop_closed=~f, pgo_shift=pgo_shift)
+                    if gba_rmse is not None:
+                        # a closure reports its global BA's rmse (JAX's merge)
+                        info.update(ba_rmse=torch.where(torch.isnan(gba_rmse), info["ba_rmse"], gba_rmse))
 
-    state = _record_stats(state)
+    with TRACE.span("slam.record"):
+        state = _record_stats(state)
     pose = state.track.pose
     return state, FrameInfo(pose.R, pose.t, tracked=~state.track.lost, **info)
 
@@ -506,9 +523,11 @@ class SlamSystem:
         pose_hint: Optional[SE3] = None,
     ) -> FrameInfo:
         """Track one RGB-D frame; returns its (pose, tracked, ...) feedback."""
-        rgb_t = torch.as_tensor(np.asarray(rgb)).to(self.device)
-        depth_t = torch.as_tensor(np.asarray(depth, np.float32)).to(self.device)
-        kp = detect_and_describe(rgb_to_gray(rgb_t), self.fcfg)
+        with TRACE.span("slam.upload"):
+            rgb_t = torch.as_tensor(np.asarray(rgb)).to(self.device)
+            depth_t = torch.as_tensor(np.asarray(depth, np.float32)).to(self.device)
+        with TRACE.span("slam.detect"):
+            kp = detect_and_describe(rgb_to_gray(rgb_t), self.fcfg)
         return self._feed(kp, depth_t, timestamp, frame_id, pose_hint)
 
     def feed_stereo_frame(
@@ -524,16 +543,19 @@ class SlamSystem:
         if self.focal_x_baseline <= 0:
             raise ValueError("stereo tracking needs focal_x_baseline > 0")
         img = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
-        l, r = img(left), img(right)
-        gray_l = rgb_to_gray(l) if l.ndim == 3 else l
-        gray_r = rgb_to_gray(r) if r.ndim == 3 else r
-        kp = detect_and_describe(gray_l, self.fcfg)
-        d, ok = stereo_keypoint_depth(
-            gray_l, gray_r, kp.uv, kp.valid, focal_x_baseline=self.focal_x_baseline,
-            max_disparity=self.max_disparity, min_depth=self.tcfg.min_depth,
-            max_depth=self.tcfg.max_depth,
-        )
-        depth = sparse_depth_image(kp.uv, d, ok, self.cam.height, self.cam.width)
+        with TRACE.span("slam.upload"):
+            l, r = img(left), img(right)
+        with TRACE.span("slam.detect"):
+            gray_l = rgb_to_gray(l) if l.ndim == 3 else l
+            gray_r = rgb_to_gray(r) if r.ndim == 3 else r
+            kp = detect_and_describe(gray_l, self.fcfg)
+        with TRACE.span("slam.stereo_depth"):
+            d, ok = stereo_keypoint_depth(
+                gray_l, gray_r, kp.uv, kp.valid, focal_x_baseline=self.focal_x_baseline,
+                max_disparity=self.max_disparity, min_depth=self.tcfg.min_depth,
+                max_depth=self.tcfg.max_depth,
+            )
+            depth = sparse_depth_image(kp.uv, d, ok, self.cam.height, self.cam.width)
         return self._feed(kp, depth, timestamp, frame_id, pose_hint)
 
     def _feed(self, kp: Keypoints, depth: torch.Tensor, timestamp: float,
@@ -544,13 +566,15 @@ class SlamSystem:
         pose0 = SE3.identity(dev) if pose_hint is None else SE3(
             pose_hint.R.to(dev, torch.float32), pose_hint.t.to(dev, torch.float32)
         )
-        self.state, info = slam_frame_step(
-            self.state, kp, depth,
-            torch.full((), fid, dtype=torch.int32, device=dev),
-            torch.full((), timestamp, dtype=torch.float32, device=dev),
-            pose0, self.cam, self.tcfg, self.params,
-        )
-        self.pose_buffer.register_lazy(timestamp, info.pose, info._dev["tracked"])
+        with TRACE.span("slam.step"):
+            self.state, info = slam_frame_step(
+                self.state, kp, depth,
+                torch.full((), fid, dtype=torch.int32, device=dev),
+                torch.full((), timestamp, dtype=torch.float32, device=dev),
+                pose0, self.cam, self.tcfg, self.params,
+            )
+        with TRACE.span("pose_buffer.register"):
+            self.pose_buffer.register_lazy(timestamp, info.pose, info._dev["tracked"])
         return info
 
     def refine_map(self, mesh=None, window: int = 16, iterations: int = 6, sweeps: int = 2) -> dict:
@@ -586,7 +610,8 @@ class SlamSystem:
     @property
     def lost(self) -> bool:
         """True while tracking is lost (before relocalization)."""
-        return bool(self.state.track.lost)
+        with TRACE.wait("slam.lost"):
+            return bool(self.state.track.lost)
 
     @property
     def num_loop_closures(self) -> int:

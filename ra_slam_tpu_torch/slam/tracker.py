@@ -29,6 +29,7 @@ from ra_slam_tpu_torch.slam.landmarks import (
     scatter_rows,
 )
 from ra_slam_tpu_torch.slam.pnp import motion_only_gn
+from ra_slam_tpu_torch.utils.profiling import TRACE
 
 _INF = float("inf")
 
@@ -157,26 +158,30 @@ def track_frame(
     d_kp, has_depth = keypoint_depth(depth, kp, tcfg)
     d_obs = torch.where(has_depth, d_kp, 0.0)
 
-    dist = hamming_matrix(kp.desc, state.lms.desc)  # [F, M]
-    lm_idx1, mvalid1 = _gated_match(
-        dist, kp, state.lms, pose_pred, cam, tcfg, tcfg.match_radius, state.kf_counter
-    )
-    res1 = motion_only_gn(
-        pose_pred, state.lms.pos[torch.clamp(lm_idx1, min=0).long()], kp.uv,
-        mvalid1.to(torch.float32), cam,
-        iterations=tcfg.gn_iterations, huber_delta=tcfg.huber_delta,
-    )
+    with TRACE.span("track.match"):
+        dist = hamming_matrix(kp.desc, state.lms.desc)  # [F, M]
+        lm_idx1, mvalid1 = _gated_match(
+            dist, kp, state.lms, pose_pred, cam, tcfg, tcfg.match_radius, state.kf_counter
+        )
+    with TRACE.span("track.gn"):
+        res1 = motion_only_gn(
+            pose_pred, state.lms.pos[torch.clamp(lm_idx1, min=0).long()], kp.uv,
+            mvalid1.to(torch.float32), cam,
+            iterations=tcfg.gn_iterations, huber_delta=tcfg.huber_delta,
+        )
 
-    lm_idx, mvalid = _gated_match(
-        dist, kp, state.lms, res1.pose, cam, tcfg, tcfg.rematch_radius, state.kf_counter
-    )
-    pts = state.lms.pos[torch.clamp(lm_idx, min=0).long()]
-    n_match = mvalid.sum(dtype=torch.int32)
-    res = motion_only_gn(
-        res1.pose, pts, kp.uv, mvalid.to(torch.float32), cam,
-        iterations=tcfg.gn_iterations, huber_delta=tcfg.huber_delta,
-        depth_obs=d_obs, depth_weight=tcfg.track_depth_weight,
-    )
+    with TRACE.span("track.match"):
+        lm_idx, mvalid = _gated_match(
+            dist, kp, state.lms, res1.pose, cam, tcfg, tcfg.rematch_radius, state.kf_counter
+        )
+        pts = state.lms.pos[torch.clamp(lm_idx, min=0).long()]
+        n_match = mvalid.sum(dtype=torch.int32)
+    with TRACE.span("track.gn"):
+        res = motion_only_gn(
+            res1.pose, pts, kp.uv, mvalid.to(torch.float32), cam,
+            iterations=tcfg.gn_iterations, huber_delta=tcfg.huber_delta,
+            depth_obs=d_obs, depth_weight=tcfg.track_depth_weight,
+        )
 
     # acceptance gates: hard failure = inlier collapse; soft failure =
     # residual size / implausible single-frame jump

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ra_slam_tpu_torch.core.se3 import SE3, mat_to_quat, quat_slerp, quat_to_mat
+from ra_slam_tpu_torch.utils.profiling import TRACE
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -83,7 +84,8 @@ class PoseBuffer:
     def query(self, timestamp: float) -> Optional[SE3]:
         """Pose at `timestamp`, interpolated between the bracketing
         registered poses (clamped at the ends). None if empty."""
-        self._flush()
+        with TRACE.wait("pose_buffer.query"):
+            self._flush()
         with self._lock:
             if not self._ts:
                 return None

@@ -29,17 +29,31 @@ from test_capture import _CONF
 
 
 def test_stage_timer_accumulates(tmp_path):
-    t = profiling.StageTimer()
+    """The program's span registry (`profiling.TRACE`, a StageTimer):
+    off, a span adds nothing; on, spans add to the per-name totals of
+    `summary` and `report`, and inside `device_trace` each is a named
+    `ra.` range of the written trace."""
+    t = profiling.TRACE
+    assert isinstance(t, profiling.StageTimer) and not t.enabled
     x = torch.ones(4)
-    for _ in range(3):
-        with t.span("work", block_on={"x": [x]}):
-            time.sleep(0.01)
-    s = t.summary()["work"]
-    assert s["count"] == 3 and s["mean_ms"] >= 9.0 and "work" in t.report()
-    with profiling.device_trace(str(tmp_path / "trace")):
-        with profiling.named_scope("scoped"):
-            (x * 2).sum()
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    with t.span("app.work"):
+        time.sleep(0.01)
+    assert "app.work" not in t.summary()
+    t.enable()
+    try:
+        for _ in range(3):
+            with t.span("app.work", block_on={"x": [x]}):
+                time.sleep(0.01)
+        s = t.summary()["app.work"]
+        assert s["count"] == 3 and s["mean_ms"] >= 9.0 and t.mean_ms("app.work") >= 9.0
+        assert "app.work" in t.report()
+        with profiling.device_trace(str(tmp_path / "trace")):
+            with t.span("app.scoped"):
+                (x * 2).sum()
+    finally:
+        t.enable(False)
+        t.drain()
+    assert '"ra.app.scoped"' in (tmp_path / "trace" / "trace.json").read_text()
     with profiling.device_trace(None):
         pass
 
