@@ -22,7 +22,13 @@ and depth too where a target size is asked for (INTER_NEAREST, the
 intrinsics rescaled), and the stored camera-to-world pose is inverted in
 float64 to cam_T_world. PNG colour decodes through `io/png.py`, JPEG
 colour through `io/jpeg.py` (nvjpeg on a CUDA device; without one a
-JPEG `.sens` raises), the resizes through `ops/resize.py` on the CPU.
+JPEG `.sens` raises), the resizes through `ops/resize.py`. Where the
+colour is resized: JPEG colour stays on the card that nvjpeg decoded it
+onto, is resized there, and only the output-size image is copied to the
+host (`sens.to_host`); PNG and raw colour are resized on the host, each
+such frame counted in `HOST_RESIZES` (`sens.host_resizes`). Depth is
+inflated and resized on the host. `Frame.rgb` is a host array either
+way, owned by its frame.
 `write_sens` encodes PNG colour through `io/png.py` and JPEG colour
 through nvjpeg on a CUDA device.
 
@@ -39,6 +45,7 @@ import collections
 import functools
 import os
 import struct
+import threading
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import BinaryIO, Iterator, List, Optional, Sequence, Tuple
@@ -54,6 +61,10 @@ from ra_slam_tpu_torch.utils.profiling import TRACE
 
 COLOR_RAW, COLOR_PNG, COLOR_JPEG = 0, 1, 2
 DEPTH_RAW_USHORT, DEPTH_ZLIB_USHORT, DEPTH_OCCI_USHORT = 0, 1, 2
+
+HOST_RESIZES = 0  # frames whose colour `frame()` resized on the host
+TRACE.expose("sens.host_resizes", lambda: HOST_RESIZES)
+_COUNT_LOCK = threading.Lock()  # `prefetch` reads frames from threads
 
 _MAT4 = struct.Struct("<16f")
 _FRAME_HDR = struct.Struct("<16fQQQQ")
@@ -107,6 +118,8 @@ class SensReader(RGBDDataset):
             self._ts.append(ts_color * 1e-6)  # microseconds -> seconds
             self._blob_ofs.append((ofs, color_bytes, ofs + color_bytes, depth_bytes))
         self._out_w, self._out_h = target_size or (int(self.depth_width), int(self.depth_height))
+        # JPEG colour is decoded onto, and resized on, the CUDA device where there is one
+        self._color_on_device = self.color_compression == COLOR_JPEG and torch.cuda.is_available()
 
     def __len__(self) -> int:
         return len(self._poses)
@@ -136,15 +149,18 @@ class SensReader(RGBDDataset):
             raise EOFError(f"truncated .sens file: wanted {nbytes} bytes, got {len(buf)}")
         return buf
 
-    def _raw_color(self, idx: int) -> np.ndarray:
+    def _raw_color(self, idx: int):
+        """The stored colour, [H, W, 3] uint8: nvjpeg's decode on the CUDA
+        device for JPEG where there is one, else a host array (JPEG then
+        goes through `decode_jpeg_numpy`, which raises without a device)."""
         ofs, nbytes, _, _ = self._blob_ofs[idx]
         blob = self._blob(ofs, nbytes)
         if self.color_compression == COLOR_PNG:
             return decode_png(blob, "color")
         if self.color_compression == COLOR_JPEG:
-            from ra_slam_tpu_torch.io.jpeg import decode_jpeg_numpy
+            from ra_slam_tpu_torch.io import jpeg
 
-            return decode_jpeg_numpy(blob)
+            return jpeg.decode_jpeg(blob) if self._color_on_device else jpeg.decode_jpeg_numpy(blob)
         if self.color_compression != COLOR_RAW:
             raise NotImplementedError(f"colour compression {self.color_compression} not supported")
         return np.frombuffer(blob, np.uint8).reshape(self.color_height, self.color_width, 3)
@@ -159,19 +175,27 @@ class SensReader(RGBDDataset):
         return np.frombuffer(blob, "<u2").reshape(self.depth_height, self.depth_width)
 
     def frame(self, idx: int) -> Frame:
+        global HOST_RESIZES
         with TRACE.span("sens.frame"):
             with TRACE.span("sens.color"):
                 rgb = self._raw_color(idx)
             if rgb.shape[:2] != (self._out_h, self._out_w):
                 with TRACE.span("sens.resize"):
-                    rgb = resize_linear(torch.from_numpy(np.ascontiguousarray(rgb)), self._out_w, self._out_h).numpy()
+                    if isinstance(rgb, np.ndarray):
+                        rgb = torch.from_numpy(np.ascontiguousarray(rgb))
+                        with _COUNT_LOCK:
+                            HOST_RESIZES += 1
+                    rgb = resize_linear(rgb, self._out_w, self._out_h)
+            if isinstance(rgb, torch.Tensor) and rgb.is_cuda:
+                with TRACE.wait("sens.to_host"):
+                    rgb = rgb.cpu()
             with TRACE.span("sens.depth"):
                 depth_raw = self._raw_depth(idx)
                 if depth_raw.shape != (self._out_h, self._out_w):
                     d = torch.from_numpy(depth_raw.astype(np.int32))
                     depth_raw = resize_nearest(d, self._out_w, self._out_h).numpy().astype(np.uint16)
                 depth = depth_raw.astype(np.float32) / self.depth_shift
-            return Frame(frame_id=idx, timestamp=self._ts[idx], rgb=rgb, depth=depth, cam_T_world=self.pose(idx))
+            return Frame(frame_id=idx, timestamp=self._ts[idx], rgb=np.asarray(rgb), depth=depth, cam_T_world=self.pose(idx))
 
     def prefetch(self, num_threads: int = 2, capacity: int = 8) -> Iterator[Frame]:
         """Iterate the frames in order, decoded ahead by `num_threads`

@@ -27,7 +27,8 @@ first waits for the device of the tensor(s) `t` (torch returns before a
 CUDA kernel ends), so the span is the device's time too.
 
 The program's counters stay in their modules (`slam.system.SYNCS`,
-`tsdf_fuse.LAUNCHES`, `hamming.LAUNCHES`, `_build.BUILD_SECONDS`);
+`tsdf_fuse.LAUNCHES`, `hamming.LAUNCHES`, `io.sens.HOST_RESIZES`,
+`_build.BUILD_SECONDS`);
 each module `expose`s its own, and `TRACE.counters()` reads them all as
 they stand. They count whether or not the registry is on.
 

@@ -1,5 +1,6 @@
 """Tests of the PyTorch port that need the GPU: the CUDA fuse and
-Hamming kernels against their plain PyTorch versions, the fusion path,
+Hamming kernels against their plain PyTorch versions, the `.sens`
+reader's JPEG colour resized on the card, the fusion path,
 raycast, meshing, resizing, the UNet, a training step, dense stereo and
 rectification on the card against the same on the CPU, sharded fusion
 on a LocalMesh on the card against the CPU, nvjpeg against cv2's pixels
@@ -235,6 +236,73 @@ def test_resize_cuda_matches_cpu(cuda):
             a = resize(torch.as_tensor(img), w, h, how)
             b = resize(torch.as_tensor(img, device=cuda), w, h, how)
             assert b.device.type == "cuda" and torch.equal(a, b.cpu()), (img.shape, how)
+
+
+RESIZE_SIZES = [
+    ((968, 1296), (480, 640)),  # ScanNet's colour to its depth size
+    ((480, 640), (240, 320)),
+    ((240, 320), (480, 640)),  # upscale
+    ((479, 641), (241, 320)),  # odd sizes both ways
+    ((37, 1), (18, 5)),  # a 1-pixel-wide source
+    ((376, 672), (188, 336)),  # the ZED's frames halved
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", RESIZE_SIZES, ids=[f"{s[1]}x{s[0]}->{d[1]}x{d[0]}" for s, d in RESIZE_SIZES])
+def test_resize_on_card_matches_cpu_at_reader_sizes(cuda, src, dst):
+    """uint8 INTER_LINEAR on the card against the CPU, bit for bit, RGB
+    and grey, at the sizes the readers resize; the tables are uploaded
+    once per sizes and device."""
+    from ra_slam_tpu_torch.ops import resize as r
+
+    (h, w), (H, W) = src, dst
+    rng = np.random.default_rng(h * 7 + w)
+    rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    rgb[: h // 2, : w // 2] = 255  # saturated corners: the largest sums
+    rgb[h // 2:, w // 2:] = 0
+    for img in (torch.as_tensor(rgb), torch.as_tensor(rgb[..., 1].copy())):
+        k = r.resize_linear(img.to(cuda), W, H)
+        assert k.device.type == "cuda" and k.dtype == torch.uint8
+        assert torch.equal(k.cpu(), r.resize_linear(img, W, H))
+    n = len(r._TABLES)
+    r.resize_linear(torch.as_tensor(rgb, device=cuda), W, H)
+    assert len(r._TABLES) == n
+
+
+@pytest.mark.cuda
+def test_jpeg_sens_resizes_on_the_card(cuda, tmp_path):
+    """A JPEG `.sens` (colour 100x75, depth 64x48) read on the card:
+    each frame's colour is nvjpeg's decode resized on the card, the
+    bytes of that decode copied to the host and resized there; no host
+    resize, by `frame` and by `prefetch`'s threads."""
+    from ra_slam_tpu_torch.io import sens
+    from ra_slam_tpu_torch.io.jpeg import decode_jpeg
+    from ra_slam_tpu_torch.ops import resize as r
+
+    rng = np.random.default_rng(3)
+    vs, us = np.mgrid[0:75, 0:100]
+    rgbs = [np.stack([us * 2 + i, vs * 3, rng.integers(0, 256, (75, 100))], -1).astype(np.uint8) for i in range(4)]
+    depths = [rng.integers(500, 4000, (48, 64)).astype(np.uint16) for _ in range(4)]
+    k = np.array([[50.0, 0, 31.5], [0, 50.0, 23.5], [0, 0, 1]], np.float32)
+    path = str(tmp_path / "j.sens")
+    sens.write_sens(path, rgbs, depths, [np.eye(4, dtype=np.float32)] * 4, k,
+                    color_compression=sens.COLOR_JPEG, device=cuda)
+    reader = sens.SensReader(path)
+    want = []
+    for i in range(len(reader)):
+        ofs, nbytes, _, _ = reader._blob_ofs[i]
+        host = decode_jpeg(reader._blob(ofs, nbytes), cuda).cpu()
+        want.append(r.resize_linear(host, 64, 48).numpy())
+    for read in (lambda: [reader.frame(i) for i in range(len(reader))], lambda: list(reader.prefetch(2, 2))):
+        h0 = sens.HOST_RESIZES
+        frames = read()
+        assert sens.HOST_RESIZES == h0
+        for f, w in zip(frames, want):
+            assert isinstance(f.rgb, np.ndarray) and f.rgb.dtype == np.uint8 and f.rgb.shape == (48, 64, 3)
+            np.testing.assert_array_equal(f.rgb, w)
+        assert len({f.rgb.ctypes.data for f in frames}) == 4  # each frame owns its colour
+    reader.close()
 
 
 @pytest.mark.cuda

@@ -2,8 +2,8 @@
 the flat-YAML reader and writer against PyYAML, logged folders written
 by either package read by the other exactly, `.sens` files with PNG
 colour written by the JAX package read exactly (at the native size and
-with colour of another size resized), and a JPEG `.sens` raising where
-no decoder is bound."""
+with colour of another size resized, on the host and counted there),
+and a JPEG `.sens` raising where no decoder is bound."""
 
 import os
 
@@ -158,6 +158,31 @@ def test_sens_written_by_jax_reads_as_in_jax(tmp_path, color, target):
     jsens.write_sens(path, rgbs, depths, c2w, k, depth_shift=1000.0, color_compression=jsens.COLOR_PNG)
     port, ref = tsens.SensReader(path, target_size=target), jsens.SensReader(path, target_size=target)
     _assert_sens_equal(port, ref)
+    port.close()
+    ref.close()
+
+
+@pytest.mark.parametrize("read", ["frame", "prefetch"])
+@pytest.mark.parametrize("color", [(48, 64), (75, 100)], ids=["native", "colour-ratio"])
+def test_png_sens_resizes_on_the_host(tmp_path, color, read):
+    """PNG colour read on the CPU takes the host path: `sens.host_resizes`
+    counts every frame whose colour is resized (from threads too, under
+    `prefetch`), and the frames are the JAX reader's."""
+    from ra_slam_tpu_torch.utils.profiling import TRACE
+
+    rgbs, depths, c2w, k = _sens_frames(n=6, ch=color[0], cw=color[1])
+    path = str(tmp_path / "scene.sens")
+    jsens.write_sens(path, rgbs, depths, c2w, k, depth_shift=1000.0, color_compression=jsens.COLOR_PNG)
+    port, ref = tsens.SensReader(path), jsens.SensReader(path)
+    before = TRACE.counters()
+    frames = list(port.prefetch(3, 2)) if read == "prefetch" else [port.frame(i) for i in range(len(port))]
+    after = TRACE.counters()
+    assert after["sens.host_resizes"] - before["sens.host_resizes"] == (0 if color == (48, 64) else 6)
+    assert len(frames) == 6
+    for i, fp in enumerate(frames):
+        fr = ref.frame(i)
+        for name in ("rgb", "depth", "cam_T_world"):
+            np.testing.assert_array_equal(getattr(fp, name), getattr(fr, name), err_msg=name)
     port.close()
     ref.close()
 

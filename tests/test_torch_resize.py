@@ -6,7 +6,8 @@ Bounds: INTER_NEAREST exact for every dtype; INTER_LINEAR exact for
 uint8 (cv2's fixed point emulated); INTER_LINEAR float32 within 3
 float32 ulps of the largest input magnitude (cv2's own float sums are
 not reproduced bit for bit; 3 measured at 1296x968 -> 640x480 on values
-up to 255, 2 elsewhere)."""
+up to 255, 2 elsewhere). The uint8 tables are cached per sizes and
+device and give cv2's bytes from the cache."""
 
 import cv2
 import jax
@@ -21,6 +22,7 @@ from ra_slam_tpu.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
 from ra_slam_tpu.pipeline.system import RaSlamSystem as JaxSystem
 from ra_slam_tpu_torch.core import config as tcfg
 from ra_slam_tpu_torch.core.se3 import SE3
+from ra_slam_tpu_torch.ops import resize as resize_mod
 from ra_slam_tpu_torch.ops.resize import resize
 from ra_slam_tpu_torch.pipeline.system import RaSlamSystem
 from ra_slam_tpu_torch.utils.convert import voxel_map_to_numpy
@@ -33,7 +35,12 @@ SHAPES = [
     ((48, 64), (75, 100)),  # non-integer upscale
     ((240, 320), (120, 160)),  # 2x downscale (the facade test's frames)
     ((75, 100), (29, 37)),  # non-integer downscale
+    ((479, 641), (241, 320)),  # odd sizes both ways
+    ((376, 672), (188, 336)),  # the ZED's frames halved
 ]
+# uint8 only: float32 INTER_LINEAR from one column parts from cv2's by 19
+# ulps, a shape no caller resizes in float32
+U8_SHAPES = SHAPES + [((37, 1), (18, 5))]  # a 1-pixel-wide source
 
 
 def _images(h, w, seed=0):
@@ -66,6 +73,23 @@ def test_resize_matches_cv2(src, dst):
         else:
             ulps = np.abs(lin - want).max() / np.spacing(np.float32(np.abs(img).max()))
             assert ulps <= FLOAT_ULPS, (name, ulps)
+
+
+@pytest.mark.parametrize("src,dst", U8_SHAPES, ids=[f"{s[1]}x{s[0]}->{d[1]}x{d[0]}" for s, d in U8_SHAPES])
+def test_u8_tables_are_cached(src, dst):
+    """The uint8 tables are built once per sizes and device: a second
+    resize at the same sizes builds nothing new, and both give cv2's
+    bytes (RGB and grey)."""
+    (h, w), (H, W) = src, dst
+    tabs = resize_mod._u8_tables(h, w, H, W, torch.device("cpu"))
+    n = len(resize_mod._TABLES)
+    assert [t.shape for t in tabs] == [(W,)] * 4 + [(H,)] * 4 and all(t.dtype == torch.int32 for t in tabs)
+    for name in ("uint8 RGB", "uint8 grey"):
+        img = _images(h, w)[name]
+        for _ in range(2):
+            out = resize_mod.resize_linear(torch.as_tensor(img), W, H).numpy()
+            np.testing.assert_array_equal(out, cv2.resize(img, (W, H)), err_msg=name)
+    assert resize_mod._u8_tables(h, w, H, W, torch.device("cpu")) is tabs and len(resize_mod._TABLES) == n
 
 
 def test_resize_rejects_bad_input():
