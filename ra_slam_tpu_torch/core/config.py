@@ -1,9 +1,12 @@
 """Configuration dataclasses (counterpart of `ra_slam_tpu/core/config.py`).
 
 Same fields and defaults as the JAX package's `CameraConfig`,
-`TsdfConfig`, `FeatureConfig`, `TrackingConfig` and `SystemConfig`. The
-BA config arrives with the bundle-adjustment port. `yaml` is imported only inside
-`load_yaml_config`, so importing this module needs no PyYAML.
+`TsdfConfig`, `FeatureConfig`, `TrackingConfig` and `SystemConfig`, and
+one field more: `SystemConfig.depth_camera`, the depth camera's own
+intrinsics where it is not the tracking camera (the robot's L515 beside
+its ZED). The BA config arrives with the bundle-adjustment port. `yaml`
+is imported only inside `load_yaml_config`, so importing this module
+needs no PyYAML.
 """
 
 from __future__ import annotations
@@ -178,26 +181,27 @@ class SystemConfig:
     ba: BAConfig = field(default_factory=BAConfig)
     # extrinsics: 4x4 row-major depth-cam -> tracking-cam transform
     extrinsics: Optional[list] = None
+    # the depth camera's intrinsics (the frames `feed_rgbd_frame` fuses)
+    # where it is another camera than `camera`, the tracking camera;
+    # None: the depth frames come from `camera`
+    depth_camera: Optional[CameraConfig] = None
 
 
 def _get(node: dict, key: str, default):
     return node[key] if node and key in node else default
 
 
-def load_yaml_config(path: str) -> SystemConfig:
-    """Parse a reference-style YAML config into a SystemConfig (the
-    camera, tsdf, feature and extrinsics keys of the JAX package's loader)."""
-    import yaml
+def _camera_node(node: dict, name: str) -> dict:
+    """The `name` section of a config, nested (`name:` with keys under
+    it, or its lower-case form) or flat (`name.key` keys)."""
+    sec = node.get(name, node.get(name.lower(), {})) or {}
+    if not sec:
+        sec = {k.split(".", 1)[1]: v for k, v in node.items() if k.startswith(name + ".")}
+    return sec
 
-    with open(path) as f:
-        node = yaml.safe_load(f) or {}
 
-    cam_node = node.get("Camera", node.get("camera", {})) or {}
-    if not cam_node:
-        cam_node = {
-            k.split(".", 1)[1]: v for k, v in node.items() if k.startswith("Camera.")
-        }
-    cam = CameraConfig(
+def _camera(cam_node: dict, depthmap_factor: float) -> CameraConfig:
+    return CameraConfig(
         fx=float(_get(cam_node, "fx", 525.0)),
         fy=float(_get(cam_node, "fy", 525.0)),
         cx=float(_get(cam_node, "cx", 319.5)),
@@ -205,11 +209,27 @@ def load_yaml_config(path: str) -> SystemConfig:
         width=int(_get(cam_node, "cols", _get(cam_node, "width", 640))),
         height=int(_get(cam_node, "rows", _get(cam_node, "height", 480))),
         fps=float(_get(cam_node, "fps", 30.0)),
-        depthmap_factor=float(
-            node.get("depthmap_factor", cam_node.get("depthmap_factor", 5000.0))
-        ),
+        depthmap_factor=float(depthmap_factor),
         focal_x_baseline=float(_get(cam_node, "focal_x_baseline", 0.0)),
     )
+
+
+def load_yaml_config(path: str) -> SystemConfig:
+    """Parse a reference-style YAML config into a SystemConfig (the
+    camera, tsdf, feature and extrinsics keys of the JAX package's
+    loader). A `DepthCamera` section (nested, or flat `DepthCamera.fx`
+    ... keys; the `Camera` section's key names: fx, fy, cx, cy, cols,
+    rows, fps, depthmap_factor) gives `depth_camera`; without one it is
+    None and the result is the JAX loader's."""
+    import yaml
+
+    with open(path) as f:
+        node = yaml.safe_load(f) or {}
+
+    cam_node = _camera_node(node, "Camera")
+    cam = _camera(cam_node, node.get("depthmap_factor", cam_node.get("depthmap_factor", 5000.0)))
+    depth_node = _camera_node(node, "DepthCamera")
+    depth_cam = _camera(depth_node, depth_node.get("depthmap_factor", 5000.0)) if depth_node else None
 
     tsdf_node = node.get("tsdf", {}) or {}
     tsdf_kwargs = {}
@@ -232,5 +252,6 @@ def load_yaml_config(path: str) -> SystemConfig:
 
     extrinsics = node.get("Extrinsics", node.get("extrinsics"))
     return SystemConfig(
-        camera=cam, tsdf=TsdfConfig(**tsdf_kwargs), feature=feat, extrinsics=extrinsics
+        camera=cam, tsdf=TsdfConfig(**tsdf_kwargs), feature=feat, extrinsics=extrinsics,
+        depth_camera=depth_cam,
     )

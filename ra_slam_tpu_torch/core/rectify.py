@@ -32,7 +32,10 @@ has `Calibration.baseline` but no `Calibration.translation`, as
 [-baseline, 0, 0]; `rectify` takes and returns numpy arrays (computed on
 the rectifier's device) or tensors (on their own device);
 `rewrite_camera_config` puts the rectified intrinsics into a
-`SystemConfig`.
+`SystemConfig`. `rectify` reports to `utils/profiling.py:TRACE`: the
+span `rectify.remap` (the upload and both remaps), on the numpy path the
+wait `rectify.to_host` (the copy back), and the counter `rectify.calls`
+(`CALLS`, pairs rectified).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 from ra_slam_tpu_torch.core.camera import PinholeCamera
+from ra_slam_tpu_torch.utils.profiling import TRACE
 
 UNDISTORT_ITERATIONS = 5  # cv2.undistortPoints' default criteria (COUNT, 5)
 
@@ -63,6 +67,10 @@ class CalibStereo:
     right: CalibMono
     rotation: List[float]  # Rodrigues vector, right_R_left
     translation: List[float]  # right_t_left (meters)
+
+
+CALLS = 0  # pairs `StereoRectifier.rectify` rectified
+TRACE.expose("rectify.calls", lambda: CALLS)
 
 
 def _k_matrix(c: CalibMono) -> np.ndarray:
@@ -341,12 +349,18 @@ class StereoRectifier:
     def rectify(self, img_l, img_r):
         """Rectified (left, right) uint8 images: numpy in, numpy out
         (computed on the rectifier's device), or tensors on their device."""
+        global CALLS
+        CALLS += 1
         if isinstance(img_l, torch.Tensor):
-            plan_l, plan_r = self.plans(img_l.device)
-            return remap_linear(img_l, plan_l), remap_linear(img_r.to(img_l.device), plan_r)
-        plan_l, plan_r = self.plans(self.device)
-        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=self.device)
-        return (remap_linear(t(img_l), plan_l).cpu().numpy(), remap_linear(t(img_r), plan_r).cpu().numpy())
+            with TRACE.span("rectify.remap"):
+                plan_l, plan_r = self.plans(img_l.device)
+                return remap_linear(img_l, plan_l), remap_linear(img_r.to(img_l.device), plan_r)
+        with TRACE.span("rectify.remap"):
+            plan_l, plan_r = self.plans(self.device)
+            t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+            out_l, out_r = remap_linear(t(img_l), plan_l), remap_linear(t(img_r), plan_r)
+        with TRACE.wait("rectify.to_host"):
+            return out_l.cpu().numpy(), out_r.cpu().numpy()
 
     @property
     def rectified_intrinsics(self) -> np.ndarray:

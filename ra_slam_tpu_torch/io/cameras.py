@@ -47,7 +47,9 @@ def require_sdk(module: str, why: str):
 class RealSenseCamera:
     """L515 / SR300-style RGB-D capture through pyrealsense2:
     `get_rgbd_frame()` returns (rgb [H, W, 3] uint8, depth [H, W] float32
-    meters aligned to colour, timestamp in seconds)."""
+    meters aligned to colour, timestamp in seconds). `camera` is the
+    intrinsics of those frames (the colour stream's, which the depth is
+    aligned to) as a `CameraConfig`."""
 
     def __init__(self, color_size: Tuple[int, int] = (1280, 720), depth_size: Tuple[int, int] = (640, 480),
                  fps: int = 30):
@@ -59,6 +61,11 @@ class RealSenseCamera:
         profile = self.pipeline.start(cfg)
         self.depth_scale = float(profile.get_device().first_depth_sensor().get_depth_scale())
         self.align = rs.align(rs.stream.color)
+        from ra_slam_tpu_torch.core.config import CameraConfig
+
+        k = profile.get_stream(rs.stream.color).as_video_stream_profile().get_intrinsics()
+        self.camera = CameraConfig(fx=k.fx, fy=k.fy, cx=k.ppx, cy=k.ppy, width=k.width, height=k.height,
+                                   fps=float(fps), depthmap_factor=1.0 / self.depth_scale)
 
     def get_rgbd_frame(self) -> Tuple[np.ndarray, np.ndarray, float]:
         frames = self.align.process(self.pipeline.wait_for_frames())

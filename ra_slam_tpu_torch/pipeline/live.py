@@ -20,12 +20,17 @@ device's stream.
         --model seg.msgpack --out /tmp/live --device cuda
 
 `main` needs a ZED on UVC (cv2) and a RealSense (pyrealsense2); `run`
-takes any objects with `get_stereo_frame()` / `get_rgbd_frame()`.
+takes any objects with `get_stereo_frame()` / `get_rgbd_frame()`. The
+config's `Camera` section becomes the rectified ZED (as the reference's
+`GetAndSetConfig` rewrites it); the RGB-D frames are fused with the
+depth camera's own intrinsics: the config's `DepthCamera` section, else
+the RealSense's colour stream, which its depth is aligned to.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import threading
@@ -138,9 +143,6 @@ def main(argv=None):
 
     cfg = load_yaml_config(args.config)
     rectifier = StereoRectifier.from_yaml(args.calib or args.config, device=args.device)
-    cfg = rewrite_camera_config(cfg, rectifier)
-
-    system = RaSlamSystem(cfg, args.device, segmentation_model=args.model)
     stereo = ZedNativeCamera(rectifier, device_id=args.zed_device)
     try:
         rgbd = RealSenseCamera()
@@ -148,6 +150,9 @@ def main(argv=None):
         stereo.close()
         raise
     try:
+        cfg = dataclasses.replace(rewrite_camera_config(cfg, rectifier),
+                                  depth_camera=cfg.depth_camera or rgbd.camera)
+        system = RaSlamSystem(cfg, args.device, segmentation_model=args.model)
         n, n_slam, n_tsdf = run(system, stereo, rgbd, out_dir=args.out, stop_after_s=args.duration)
         print(f"live session done: {system.num_integrated} frames fused "
               f"({n_slam} tracked / {n_tsdf} rgbd), {n} previews")

@@ -15,6 +15,14 @@ robot-facing API:
     download_all()         — reference-format (x, y, z, tsdf, prob) dump
     download_all_mesh()    — reference-format mesh dump (`map/meshing.py`)
     semantic_voxels()      — the same rows as an array
+    last_pose              — the cam_T_world the last depth frame was
+                             fused at (None before the first)
+
+Depth frames are fused with the depth camera's intrinsics:
+`cfg.depth_camera` where it is set (a depth camera beside the tracking
+camera, as the robot's L515 beside its ZED), else `cfg.camera`. A stereo
+tracking camera's keypoint depths count out to `STEREO_DEPTH_THRESHOLD`
+baselines.
 
 A frame of another size than the map's feed size is resized on the
 device as the JAX facade does with cv2: colour INTER_LINEAR, depth
@@ -25,6 +33,7 @@ engine (`models/segmentation.py`).
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from typing import Optional, Tuple
 
@@ -47,6 +56,15 @@ from ra_slam_tpu_torch.models.segmentation import InferenceEngine
 from ra_slam_tpu_torch.ops.resize import resize_linear, resize_nearest
 from ra_slam_tpu_torch.slam.system import SlamSystem
 from ra_slam_tpu_torch.utils.profiling import TRACE
+
+
+# A stereo tracking camera's keypoint depths are trusted out to this many
+# baselines (OpenVSLAM's Camera.depth_threshold, ORB-SLAM2's ThDepth: 40 in
+# their stereo example configurations). A farther keypoint tracks the
+# landmarks it matches but makes none. At the ZED's 0.12 m baseline that is
+# 4.8 m, a disparity of ~8 px; the landmarks of farther, noisier depths
+# drifted a ZED walk to 7-9 cm ATE in 420 pairs, 2-3 cm without them.
+STEREO_DEPTH_THRESHOLD = 40.0
 
 
 def resolve_device(device) -> torch.device:
@@ -75,9 +93,9 @@ class RaSlamSystem:
         self.device = resolve_device(device)
         self.alloc_stride = alloc_stride
         tsdf = cfg.tsdf
+        dcam = cfg.depth_camera or cfg.camera
         self.tsdf_cam = PinholeCamera.create(
-            cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy,
-            cfg.camera.width, cfg.camera.height,
+            dcam.fx, dcam.fy, dcam.cx, dcam.cy, dcam.width, dcam.height,
         ).resized(tsdf.width, tsdf.height)
         # depth-camera -> tracking-camera extrinsics, applied to queried poses
         self.extrinsics: Optional[SE3] = None
@@ -99,12 +117,17 @@ class RaSlamSystem:
             if tcfg == TrackingConfig():
                 scale = cam.width / 320.0
                 tcfg = tcfg.scaled(scale)
+            if cam.focal_x_baseline > 0:
+                # tcfg.max_depth gates the keypoint depths a frame makes
+                tcfg = dataclasses.replace(tcfg, max_depth=min(
+                    tcfg.max_depth, STEREO_DEPTH_THRESHOLD * cam.focal_x_baseline / cam.fx))
             self.slam = SlamSystem(
                 track_cam, fcfg=cfg.feature, tcfg=tcfg,
                 loop_max_rmse=3.0 * scale, reloc_max_rmse=3.0 * scale,
                 focal_x_baseline=cam.focal_x_baseline, device=self.device,
             )
         self.last_stats: dict = {}
+        self.last_pose: Optional[SE3] = None
         self.num_integrated = 0
         # serializes map access between camera threads; the map is
         # updated in place
@@ -155,12 +178,13 @@ class RaSlamSystem:
             if self.slam.lost:
                 # fusing with a stale pose corrupts the map
                 return {"skipped": "tracking lost"}
-            pose = self.slam.query_pose(timestamp)
-            if pose is None:
-                return {"skipped": "no pose"}
-            pose = SE3(pose.R.to(self.device, torch.float32), pose.t.to(self.device, torch.float32))
-            if self.extrinsics is not None:
-                pose = self.extrinsics @ pose
+            with TRACE.span("facade.pose_query"):
+                pose = self.slam.query_pose(timestamp)
+                if pose is None:
+                    return {"skipped": "no pose"}
+                pose = SE3(pose.R.to(self.device, torch.float32), pose.t.to(self.device, torch.float32))
+                if self.extrinsics is not None:
+                    pose = self.extrinsics @ pose
         with TRACE.span("facade.upload"):
             rgb = np.asarray(rgb)
             rgb_t = torch.as_tensor(rgb if rgb.dtype == np.uint8 else rgb.astype(np.float32)).to(self.device)
@@ -180,6 +204,7 @@ class RaSlamSystem:
                 self.tsdf_cam, pose, tsdf, alloc_stride=self.alloc_stride,
             )
             self.num_integrated += 1
+            self.last_pose = pose
             with TRACE.wait("facade.stats"):
                 self.last_stats = {k: int(v) for k, v in stats.items()}
             return self.last_stats

@@ -6,6 +6,9 @@ pose at a depth frame's timestamp: SLERP of the rotation and a lerp of
 the translation between the two bracketing poses, clamped at the ends.
 Host-side: poses are kept as float64 numpy; the tracker's device poses
 are registered lazily and copied to the host together on the first read.
+The counter `pose_buffer.interpolated` (`INTERPOLATED`, in
+`utils/profiling.py:TRACE.counters()`) counts the queries answered
+between two registered poses rather than at one.
 """
 
 from __future__ import annotations
@@ -19,6 +22,10 @@ import torch
 
 from ra_slam_tpu_torch.core.se3 import SE3, mat_to_quat, quat_slerp, quat_to_mat
 from ra_slam_tpu_torch.utils.profiling import TRACE
+
+
+INTERPOLATED = 0  # queries that fell strictly between two registered poses
+TRACE.expose("pose_buffer.interpolated", lambda: INTERPOLATED)
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -84,6 +91,7 @@ class PoseBuffer:
     def query(self, timestamp: float) -> Optional[SE3]:
         """Pose at `timestamp`, interpolated between the bracketing
         registered poses (clamped at the ends). None if empty."""
+        global INTERPOLATED
         with TRACE.wait("pose_buffer.query"):
             self._flush()
         with self._lock:
@@ -96,6 +104,7 @@ class PoseBuffer:
                 q, t = self._quat[-1], self._trans[-1]
             else:
                 t0, t1 = self._ts[i - 1], self._ts[i]
+                INTERPOLATED += t0 < timestamp < t1
                 u = 0.0 if t1 <= t0 else (timestamp - t0) / (t1 - t0)
                 q = _np(quat_slerp(torch.from_numpy(self._quat[i - 1]), torch.from_numpy(self._quat[i]), u))
                 t = (1.0 - u) * self._trans[i - 1] + u * self._trans[i]

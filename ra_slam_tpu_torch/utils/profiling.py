@@ -5,8 +5,9 @@
 instance that the program's stages report to: the reader
 (`io/sens.py`), the facade (`pipeline/system.py`), fusion
 (`map/voxel_map.py`, `models/segmentation.py`), tracking
-(`slam/system.py`, `slam/tracker.py`, `features/orb.py`), the pose
-buffer and the kernel builds (`ops/_build.py`).
+(`slam/system.py`, `slam/tracker.py`, `features/orb.py`), the stereo
+rectifier (`core/rectify.py`), the pose buffer and the kernel builds
+(`ops/_build.py`).
 
 `TRACE` is off until `TRACE.enable()`; nothing in the program enables
 it. Off, `span(name)` and `wait()` return one shared no-op context: a
@@ -28,7 +29,7 @@ CUDA kernel ends), so the span is the device's time too.
 
 The program's counters stay in their modules (`slam.system.SYNCS`,
 `tsdf_fuse.LAUNCHES`, `hamming.LAUNCHES`, `io.sens.HOST_RESIZES`,
-`_build.BUILD_SECONDS`);
+`rectify.CALLS`, `pose_buffer.INTERPOLATED`, `_build.BUILD_SECONDS`);
 each module `expose`s its own, and `TRACE.counters()` reads them all as
 they stand. They count whether or not the registry is on.
 

@@ -6,6 +6,8 @@ session and is re-raised; `main` wires the rectifier, the config and
 `--device` through to the facade; `ZedDepthCamera` (io/cameras.py)
 computes its depth with `dense_stereo_depth` on its device."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -92,9 +94,17 @@ def test_zed_depth_camera_cuda_without_gpu_raises(monkeypatch):
         cameras.ZedDepthCamera(None, FXB, cam=_FakeZed())
 
 
-def test_main_wires_config_rectifier_and_device(tmp_path, monkeypatch, capsys):
+# the RealSense's colour stream in the fakes: the frames FakeRGBDCam
+# delivers (the left view of tests/test_stereo.py's pairs)
+RS_CAMERA = CameraConfig(fx=SPEC.fx, fy=SPEC.fy, cx=SPEC.cx, cy=SPEC.cy, width=SPEC.width, height=SPEC.height)
+# a depth camera apart from the ZED: other intrinsics at the same size
+DEPTH_CAMERA = CameraConfig(fx=150.0, fy=151.0, cx=121.5, cy=88.0, width=SPEC.width, height=SPEC.height)
+
+
+def _live_main(tmp_path, monkeypatch, extra=(), rs_camera=RS_CAMERA, duration=1.0):
     """`live.main --device cpu` on a config holding an identity stereo
-    calibration, with fake cameras in place of the drivers."""
+    calibration (and the lines `extra`), with fake cameras in place of
+    the drivers; returns (the system `run` was given, the fakes)."""
     text = "\n".join([
         f"Camera.fx: {SPEC.fx}", f"Camera.fy: {SPEC.fy}", f"Camera.cx: {SPEC.cx}", f"Camera.cy: {SPEC.cy}",
         f"Camera.cols: {SPEC.width}", f"Camera.rows: {SPEC.height}",
@@ -103,6 +113,7 @@ def test_main_wires_config_rectifier_and_device(tmp_path, monkeypatch, capsys):
         "Calibration.left.distortion: [0.0, 0.0, 0.0, 0.0, 0.0]",
         "Calibration.right.distortion: [0.0, 0.0, 0.0, 0.0, 0.0]",
         "Calibration.rotation: [0.0, 0.0, 0.0]", f"Calibration.translation: [{-BASELINE}, 0.0, 0.0]",
+        *extra,
         "tsdf:", "  voxel_size: 0.05", "  truncation: 0.3", "  log2_num_blocks: 12", "  log2_hash_size: 14",
         "  max_visible_blocks: 1024", f"  width: {SPEC.width}", f"  height: {SPEC.height}",
         "Feature:", "  max_num_keypoints: 300", "  num_levels: 3",
@@ -116,6 +127,12 @@ def test_main_wires_config_rectifier_and_device(tmp_path, monkeypatch, capsys):
         return made["zed"]
 
     class FakeRealSense(FakeRGBDCam):
+        camera = rs_camera
+
+        def __init__(self):
+            super().__init__()
+            made["rs"] = self
+
         def close(self):
             made["rs_closed"] = True
 
@@ -125,13 +142,49 @@ def test_main_wires_config_rectifier_and_device(tmp_path, monkeypatch, capsys):
     saved = live.run
 
     def spy(system, stereo, rgbd, **kw):
-        seen["system"] = system
+        seen["system"] = rgbd.system = system  # its first frame waits for a tracked pose
         return saved(system, stereo, rgbd, **kw)
 
     monkeypatch.setattr(live, "run", spy)
-    live.main(["--config", str(cfg_path), "--device", "cpu", "--duration", "1.0", "--out", str(tmp_path / "v")])
-    system = seen["system"]
+    live.main(["--config", str(cfg_path), "--device", "cpu", "--duration", str(duration), "--out", str(tmp_path / "v")])
+    return seen["system"], made
+
+
+def _tsdf_cam_of(c: CameraConfig):
+    from ra_slam_tpu_torch.core.camera import PinholeCamera
+
+    return PinholeCamera.create(c.fx, c.fy, c.cx, c.cy, c.width, c.height).resized(SPEC.width, SPEC.height)
+
+
+def test_main_wires_config_rectifier_and_device(tmp_path, monkeypatch, capsys):
+    """`live.main --device cpu` with fake cameras: the rectifier, the
+    config and the device reach the facade; the RGB-D frames are fused
+    with the RealSense's own intrinsics."""
+    system, made = _live_main(tmp_path, monkeypatch)
     assert system.device.type == "cpu" and made["zed"].closed and made["rs_closed"]
     assert made["zed"].rectifier.device.type == "cpu"
     assert system.cfg.camera.focal_x_baseline == pytest.approx(FXB, rel=1e-6)
+    assert system.cfg.depth_camera == RS_CAMERA and system.tsdf_cam == _tsdf_cam_of(RS_CAMERA)
     assert "live session done" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("source", ["config_section", "realsense_stream"])
+def test_main_fuses_with_the_depth_camera(tmp_path, monkeypatch, source):
+    """A depth camera apart from the tracking camera: `main` rewrites the
+    tracking camera to the rectified ZED and fuses the RGB-D frames with
+    the depth camera's intrinsics, from the config's `DepthCamera`
+    section or else from the RealSense's stream; frames fuse through
+    `live.run`'s two threads."""
+    if source == "config_section":
+        d = DEPTH_CAMERA
+        extra = [f"DepthCamera.{k}: {v}" for k, v in (("fx", d.fx), ("fy", d.fy), ("cx", d.cx), ("cy", d.cy),
+                                                      ("cols", d.width), ("rows", d.height))]
+        system, _ = _live_main(tmp_path, monkeypatch, extra, duration=5.0)
+        assert system.cfg.depth_camera == dataclasses.replace(DEPTH_CAMERA, depthmap_factor=5000.0)
+    else:
+        system, _ = _live_main(tmp_path, monkeypatch, rs_camera=DEPTH_CAMERA, duration=5.0)
+        assert system.cfg.depth_camera == DEPTH_CAMERA
+    assert system.tsdf_cam == _tsdf_cam_of(DEPTH_CAMERA)
+    assert system.cfg.camera.fx != DEPTH_CAMERA.fx
+    assert system.cfg.camera.focal_x_baseline == pytest.approx(FXB, rel=1e-6)
+    assert system.num_integrated > 0

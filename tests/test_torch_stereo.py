@@ -6,11 +6,26 @@ The pair is tests/test_stereo.py's: the synthetic box room rendered at
 240x180 from a left camera and from the same camera moved 0.12 m along
 its x axis, so the pair is rectified by construction. The JAX side runs
 op by op (see tests/torch_parity.py).
+
+The stereo witness: both packages' `feed_stereo_frame` stepped over six
+pairs at the robot's pace (the ZED's 672x376 halved; the clutter room,
+~0.5 cm and 0.3 deg a pair), the two states compared after every pair
+by `scripts/lockstep_torch_jax.py:compare`: every discrete field of the
+feedback and every integer field of the state exactly, poses within
+1e-5, landmark points 2e-5 and stored pixels 1e-3 (the lockstep bounds).
+It shares the system test's configuration, so that the JAX package's op
+by op compiles of the SLAM step are made once in the file's process. The
+gated witness steps the same pairs with the tracker's max_depth (which
+gates stereo keypoint depths) inside the room.
 """
+
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ra_slam_tpu.core.camera import PinholeCamera as JaxCamera
@@ -25,6 +40,10 @@ from ra_slam_tpu_torch.core.config import FeatureConfig, TrackingConfig
 from ra_slam_tpu_torch.core.se3 import SE3
 from ra_slam_tpu_torch.features import stereo as tst
 from ra_slam_tpu_torch.slam.system import SlamSystem
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
+
+import lockstep_torch_jax as ls  # noqa: E402
 
 SPEC = SyntheticCameraSpec(fx=120.0, fy=120.0, cx=119.5, cy=89.5, width=240, height=180)
 BASELINE = 0.12
@@ -104,18 +123,26 @@ def test_sparse_depth_image_matches_jax():
     assert float(t[int(np.round(uv[3, 1])), int(np.round(uv[3, 0]))]) == d[13]
 
 
+SLAM_KW = dict(ba_window=4, ba_max_points=1024, ba_iterations=3, max_disparity=48)
+FEAT_KW, TRACK_KW = dict(max_num_keypoints=300, num_levels=2), dict(min_inliers=12, match_radius=30.0)
+
+
+def _systems(c, fxb, **track_kw):
+    """(JAX, port) SlamSystems of camera `c` with the file's configuration."""
+    tkw = {**TRACK_KW, **track_kw}
+    js = JaxSlamSystem(JaxCamera.create(c.fx, c.fy, c.cx, c.cy, c.width, c.height), fcfg=JaxFeatureConfig(**FEAT_KW),
+                       tcfg=JaxTrackingConfig(**tkw), focal_x_baseline=fxb, **SLAM_KW)
+    ts = SlamSystem(PinholeCamera.create(c.fx, c.fy, c.cx, c.cy, c.width, c.height), fcfg=FeatureConfig(**FEAT_KW),
+                    tcfg=TrackingConfig(**tkw), focal_x_baseline=fxb, device="cpu", **SLAM_KW)
+    return js, ts
+
+
 def test_stereo_frames_match_jax():
     """3 stereo frames through both SlamSystems (tests/test_stereo.py's
     configuration, 300 keypoints on 2 levels): the same tracked flags, match and inlier counts and
     keyframe decisions, poses within POSE_TOL and near the ground
     truth."""
-    kw = dict(ba_window=4, ba_max_points=1024, ba_iterations=3, focal_x_baseline=FXB, max_disparity=48)
-    fkw, tkw = dict(max_num_keypoints=300, num_levels=2), dict(min_inliers=12, match_radius=30.0)
-    c = SPEC
-    js = JaxSlamSystem(JaxCamera.create(c.fx, c.fy, c.cx, c.cy, c.width, c.height),
-                       fcfg=JaxFeatureConfig(**fkw), tcfg=JaxTrackingConfig(**tkw), **kw)
-    ts = SlamSystem(PinholeCamera.create(c.fx, c.fy, c.cx, c.cy, c.width, c.height),
-                    fcfg=FeatureConfig(**fkw), tcfg=TrackingConfig(**tkw), device="cpu", **kw)
+    js, ts = _systems(SPEC, FXB)
     for i in range(3):
         rgb_l, rgb_r, cTw = _pair(i)
         jh = JaxSE3.from_matrix(jnp.asarray(cTw, jnp.float32)) if i == 0 else None
@@ -131,3 +158,68 @@ def test_stereo_frames_match_jax():
         if i > 0:
             assert ti.num_inliers >= 12
     assert int(ts.state.track.lms.valid.sum()) == int(js.state.track.lms.valid.sum()) > 50
+
+
+ROBOT = SyntheticCameraSpec(fx=175.0, fy=175.0, cx=167.5, cy=93.5, width=336, height=188)
+ROOM = np.array([3.0, 1.5, 2.5])
+PAIRS = 6
+
+
+def _robot_pair(i: int):
+    """Left / right RGB of witness pair i: on an arc of radius 1 m about
+    the clutter room's middle, 0.3 deg a pair, looking outward."""
+    a = np.radians(0.3 * i)
+    eye = np.array([np.cos(a), 0.1, np.sin(a)])
+    w_T_l = look_at(eye, eye + np.array([np.cos(a + 0.4), 0.05, np.sin(a + 0.4)]))
+    w_T_r = w_T_l.copy()
+    w_T_r[:3, 3] += w_T_l[:3, 0] * BASELINE
+    return (render_box_room(ROBOT, w_T_l, ROOM, clutter=12)[0],
+            render_box_room(ROBOT, w_T_r, ROOM, clutter=12)[0])
+
+
+# The facade gates a stereo camera's keypoint depths through
+# tcfg.max_depth (40 baselines, 4.8 m at this baseline, beyond this room);
+# the gated witness sets it at the room's median depth, so that about half
+# the keypoints' depths are dropped.
+GATE = 1.9
+
+
+def _step_witness(**track_kw):
+    """(port feedback, JAX feedback, what parts, port landmarks) after
+    every pair."""
+    js, ts = _systems(ROBOT, ROBOT.fx * BASELINE, **track_kw)
+    out = []
+    for i in range(PAIRS):
+        left, right = _robot_pair(i)
+        with jax.disable_jit():
+            ji = ls.jax_info(js.feed_stereo_frame(left, right, i / 60.0))
+            jflat = ls.flat_jax(js.state)
+        ti = ls.port_info(ts.feed_stereo_frame(left, right, i / 60.0))
+        out.append((ti, ji, ls.compare(ls.flat_port(ts.state), ti, jflat, ji), int(ts.state.track.lms.valid.sum())))
+    return out
+
+
+@pytest.fixture(scope="module")
+def witness():
+    return _step_witness()
+
+
+@pytest.fixture(scope="module")
+def gated_witness():
+    return _step_witness(max_depth=GATE)
+
+
+@pytest.mark.parametrize("pair", range(PAIRS))
+def test_stereo_witness_step_matches_jax(witness, pair):
+    ti, ji, bad, _ = witness[pair]
+    assert not bad, bad
+    assert ti["tracked"] == 1 and (pair == 0 or ti["num_inliers"] >= 50)
+
+
+@pytest.mark.parametrize("pair", range(PAIRS))
+def test_gated_stereo_witness_step_matches_jax(witness, gated_witness, pair):
+    """The witness with keypoint depths gated inside the room: the two
+    packages agree as ungated, and the gate makes fewer landmarks."""
+    ti, ji, bad, lms = gated_witness[pair]
+    assert not bad, bad
+    assert ti["tracked"] == 1 and lms < witness[pair][3]

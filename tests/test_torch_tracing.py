@@ -261,7 +261,8 @@ def test_system_records_its_span_tree_and_is_unchanged(sens_path):
         f"{track}/slam.init", f"{track}/slam.record", f"{track}/slam.step.wait",
         f"{track}/slam.track/track.match", f"{track}/slam.track/track.gn",
         f"{track}/slam.keyframe/slam.keyframe.wait", f"{track}/slam.keyframe/slam.loop_check",
-        "frame_info.pull", "facade.feed_rgbd/slam.lost", "facade.feed_rgbd/pose_buffer.query",
+        "frame_info.pull", "facade.feed_rgbd/slam.lost",
+        "facade.feed_rgbd/facade.pose_query/pose_buffer.query",
         "facade.feed_rgbd/facade.upload", "facade.feed_rgbd/seg.segment", "facade.feed_rgbd/facade.stats",
         f"{fuse}/map.allocate", f"{fuse}/map.cull", f"{fuse}/map.prep", f"{fuse}/map.fuse", f"{fuse}/map.carve",
     }
