@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ra_slam_tpu_torch.core.camera import PinholeCamera
+from ra_slam_tpu_torch.core.device import resolve_device
 from ra_slam_tpu_torch.utils.profiling import TRACE
 
 UNDISTORT_ITERATIONS = 5  # cv2.undistortPoints' default criteria (COUNT, 5)
@@ -289,8 +290,6 @@ class StereoRectifier:
 
     def __init__(self, img_size: Tuple[int, int], calib: CalibStereo, device="cuda"):
         """img_size = (width, height)."""
-        from ra_slam_tpu_torch.pipeline.system import resolve_device
-
         self.device = resolve_device(device)
         K_l, K_r = _k_matrix(calib.left), _k_matrix(calib.right)
         D_l, D_r = calib.left.distortion, calib.right.distortion

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ra_slam_tpu_torch.core.device import resolve_device
 from ra_slam_tpu_torch.core.rectify import StereoRectifier
 
 
@@ -119,8 +120,6 @@ class ZedDepthCamera:
     def __init__(self, rectifier, focal_x_baseline: float, device_id: int = 0, width: int = 1344,
                  height: int = 376, fps: int = 60, max_disparity: int = 64, max_depth: float = 10.0,
                  device="cuda", cam=None):
-        from ra_slam_tpu_torch.pipeline.system import resolve_device
-
         self.device = resolve_device(device)  # raises for cuda without a card, before the camera opens
         self.focal_x_baseline = focal_x_baseline
         self.max_disparity, self.max_depth = max_disparity, max_depth

@@ -9,14 +9,14 @@ nvjpeg, which needs a CUDA device; where there is none, or no nvjpeg,
 `decode_jpeg` raises and says what was probed: nothing decodes a JPEG
 another way. nvjpeg's IDCT and chroma upsampling are not libjpeg's, so
 its pixels differ from cv2's by a few levels
-(`tests/test_torch_sens.py`, `chip_smoke.py`). `encode_jpeg` writes
-baseline JPEG at the JAX writer's settings (quality 95, 4:2:0 chroma,
-cv2's defaults). It converts to YCbCr and halves the chroma as libjpeg,
-cv2's encoder, does (`rgb_to_ycbcr420`, on the device), and nvjpeg
-encodes the planes: from RGB, nvjpeg's own chroma subsampling loses up
-to 6.8 dB of PSNR against cv2's on frames with sharp colour edges
-(`chip_smoke.py` phase 19). On the CPU there is no encoder and it
-raises.
+(`tests/test_torch_sens.py`, `tests/test_torch_cuda.py`). `encode_jpeg`
+writes baseline JPEG at the JAX writer's settings (quality 95, 4:2:0
+chroma, cv2's defaults). It converts to YCbCr and halves the chroma as
+libjpeg, cv2's encoder, does (`rgb_to_ycbcr420`, on the device), and
+nvjpeg encodes the planes: from RGB, nvjpeg's own chroma subsampling
+loses up to 6.8 dB of PSNR against cv2's on frames with sharp colour
+edges (`tests/test_torch_cuda.py::test_nvjpeg_encoder_round_trip`). On
+the CPU there is no encoder and it raises.
 
 Nothing is loaded when the module is imported.
 """

@@ -4,7 +4,7 @@ Builds a `VoxelMap` of the box room of `io/synthetic.py` straight from
 its closed-form signed distance instead of fusing frames: one
 `allocate_keys` call for every block near a wall, then the payload
 written analytically. Meshing and raycast read it without a fusion run
-first (the tests and `chip_smoke.py` use it so).
+first (the tests use it so).
 """
 
 from __future__ import annotations

@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ra_slam_tpu_torch.core.device import resolve_device
 from ra_slam_tpu_torch.ops.resize import resize_linear
 from ra_slam_tpu_torch.utils.profiling import TRACE
 
@@ -208,8 +209,6 @@ class InferenceEngine:
         widths: Sequence[int] = DEFAULT_WIDTHS,
         device="cuda",
     ):
-        from ra_slam_tpu_torch.pipeline.system import resolve_device
-
         self.fake = model_path is None
         self.width, self.height = width, height
         self.device = resolve_device(device)

@@ -42,6 +42,8 @@ from typing import Callable, List, Sequence
 
 import torch
 
+from ra_slam_tpu_torch.core.device import resolve_device
+
 DEFAULT_TIMEOUT_S = 600.0
 
 
@@ -106,9 +108,7 @@ class LocalMesh:
         if n < 1:
             raise ValueError(f"a mesh needs at least one shard, got {n}")
         self.size = int(n)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but torch.cuda.is_available() is False")
+        self.device = resolve_device(device)
         self.axis = axis
         self.timeout = timeout
 

@@ -31,6 +31,8 @@ import subprocess
 import sys
 import time
 
+from ra_slam_tpu_torch.core.device import resolve_device
+
 
 def free_port() -> int:
     """A TCP port on localhost that was free a moment ago."""
@@ -124,7 +126,6 @@ def run(argv=None) -> dict:
     from ra_slam_tpu_torch.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
     from ra_slam_tpu_torch.parallel.distributed import global_mesh, initialize_distributed, process_info
     from ra_slam_tpu_torch.parallel.mesh import LocalMesh
-    from ra_slam_tpu_torch.pipeline.system import resolve_device
 
     device = resolve_device(args.device)
     initialize_distributed(device=device)

@@ -42,6 +42,7 @@ import torch
 
 from ra_slam_tpu_torch.core.camera import PinholeCamera
 from ra_slam_tpu_torch.core.config import SystemConfig, TrackingConfig
+from ra_slam_tpu_torch.core.device import resolve_device
 from ra_slam_tpu_torch.core.se3 import SE3
 from ra_slam_tpu_torch.map.meshing import extract_mesh, save_mesh
 from ra_slam_tpu_torch.map.raycast import raycast
@@ -65,17 +66,6 @@ from ra_slam_tpu_torch.utils.profiling import TRACE
 # 4.8 m, a disparity of ~8 px; the landmarks of farther, noisier depths
 # drifted a ZED walk to 7-9 cm ATE in 420 pairs, 2-3 cm without them.
 STEREO_DEPTH_THRESHOLD = 40.0
-
-
-def resolve_device(device) -> torch.device:
-    """`device` as a torch.device; raises for a CUDA device when torch
-    sees none (there is no silent move to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but torch.cuda.is_available() is False"
-        )
-    return device
 
 
 class RaSlamSystem:

@@ -19,6 +19,7 @@ import torch
 
 from ra_slam_tpu_torch.core.camera import PinholeCamera
 from ra_slam_tpu_torch.core.config import TsdfConfig
+from ra_slam_tpu_torch.core.device import resolve_device
 from ra_slam_tpu_torch.core.se3 import SE3
 from ra_slam_tpu_torch.io.png import write_png
 from ra_slam_tpu_torch.map.raycast import raycast
@@ -118,7 +119,6 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     from ra_slam_tpu_torch.map.voxel_map import create_map, gather_valid
-    from ra_slam_tpu_torch.pipeline.system import resolve_device
     from ra_slam_tpu_torch.utils.checkpoint import load_pytree
 
     device = resolve_device(args.device)

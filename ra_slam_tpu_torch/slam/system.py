@@ -29,6 +29,7 @@ import torch
 from ra_slam_tpu_torch.core.camera import PinholeCamera
 from ra_slam_tpu_torch.core.config import FeatureConfig, TrackingConfig
 from ra_slam_tpu_torch.core.se3 import SE3, log_se3, where_pose
+from ra_slam_tpu_torch.core.device import resolve_device
 from ra_slam_tpu_torch.features.orb import Keypoints, detect_and_describe, keypoint_capacity
 from ra_slam_tpu_torch.features.pyramid import rgb_to_gray
 from ra_slam_tpu_torch.features.stereo import sparse_depth_image, stereo_keypoint_depth
@@ -482,8 +483,6 @@ class SlamSystem:
         reassoc_gate: float = 8.0,
         device="cuda",
     ):
-        from ra_slam_tpu_torch.pipeline.system import resolve_device
-
         self.device = resolve_device(device)
         self.cam = cam
         self.fcfg = fcfg

@@ -7,7 +7,6 @@ installed, never on a machine with the port alone.
     python3 scripts/lockstep_torch_jax.py --mode free-op-by-op --row ba1 --out runs/ls_obo
     python3 scripts/lockstep_torch_jax.py --mode carried --row ba1 --out runs/ls --frames 0-74
     python3 scripts/lockstep_torch_jax.py --mode explain [--op-by-op] --row ba1 --out runs/ls --frames 17,67
-    python3 scripts/lockstep_torch_jax.py --mode traces --row ba1 --out runs/ls --traces traces.json
 
 Rows: `ba1` (BA at every keyframe, seed 0; the default), `ba1+drop`,
 `ba1+refresh`, `baseline` (seed 0, loop closing on) and
@@ -45,14 +44,9 @@ then the tracker's stages from one set of keypoints (matches with their
 gate distances, the GN poses and the first solve's conditioning,
 inliers with their residuals against the gate).
 
-`traces`: the discrete traces (a few integers a frame) and the rows of a
-row's free runs (`free.json`, and `free_op_by_op.json` where present in
-the same directory) merged into `--traces`; `chip_smoke.py` phase 20c
-compares the card with them.
-
 On an 8-core CPU at VGA the port takes ~11-13 s a frame, jitted JAX
 ~0.5 s, JAX op by op ~5 s once warm (its first frame ~2 min). Writes
-only under --out (and --traces).
+only under --out.
 """
 
 from __future__ import annotations
@@ -377,38 +371,6 @@ def summarize(frames) -> dict:
             "lost": {p: sum(not f[p]["tracked"] for f in frames) for p in ("jax", "port")},
             "relocs": {p: sum(f[p]["relocalized"] for f in frames) for p in ("jax", "port")},
             "ba_growth": growth}
-
-
-TRACE_KEYS = ("tracked", "num_matches", "num_inliers", "inserted_keyframe", "relocalized", "loop_closed")
-
-
-def write_traces(path, name, free, op_by_op=None) -> None:
-    """Merge a free run's two discrete traces (one list of TRACE_KEYS a
-    frame) and rows (ATE, lost frames, relocalizations, keyframes,
-    closures), and the JAX package's op-by-op run's where given, into
-    the JSON at `path`."""
-    data = {}
-    if os.path.exists(path):
-        with open(path) as f:
-            data = json.load(f)
-    data.setdefault("keys", list(TRACE_KEYS))
-    frames, s = free["frames"], free["summary"]
-    row = {"summary": {}}
-    for side, p in (("jax_jit_cpu", "jax"), ("port_cpu", "port")):
-        row[side] = [[int(f[p][k]) for k in TRACE_KEYS] for f in frames]
-        row["summary"][side] = {
-            "ate_rmse_m": round(s["ate_rmse_m"][p], 4), "lost_frames": s["lost"][p],
-            "relocalizations": s[f"{p}_relocalizations"], "keyframes": s[f"{p}_keyframes"],
-            "loop_closures": sum(f[p]["loop_closed"] for f in frames)}
-    if op_by_op is not None:
-        s = op_by_op["summary"]
-        row["jax_op_by_op_cpu"] = [[int(f["jax"][k]) for k in TRACE_KEYS] for f in op_by_op["frames"]]
-        row["summary"]["jax_op_by_op_cpu"] = {
-            "ate_rmse_m": round(s["ate_rmse_m"], 4), "lost_frames": s["lost"], "relocalizations": s["relocalizations"],
-            "keyframes": s["keyframes"], "loop_closures": s["loop_closures"]}
-    data.setdefault("rows", {})[name] = row
-    with open(path, "w") as f:
-        json.dump(data, f, separators=(",", ":"))
 
 
 class Stepper:
@@ -886,13 +848,11 @@ def run_explain(name, kw, out_dir, frames, jit=True):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--mode", choices=("free", "free-op-by-op", "carried", "explain", "traces"), required=True)
+    p.add_argument("--mode", choices=("free", "free-op-by-op", "carried", "explain"), required=True)
     p.add_argument("--row", default="ba1", choices=sorted(rows()))
     p.add_argument("--out", required=True, help="directory; the row's files go to <out>/<row>/")
     p.add_argument("--frames", default=None, help="free: how many (default 150); else a-b or i,j,k")
     p.add_argument("--op-by-op", action="store_true", help="explain: against JAX op by op, not jitted")
-    p.add_argument("--traces", default=None,
-                   help="traces: the JSON to merge the row's traces into (from its free.json, free_op_by_op.json)")
     args = p.parse_args(argv)
 
     import jax
@@ -907,14 +867,6 @@ def main(argv=None):
         return run_free(args.row, kw, out_dir, int(args.frames or ev.N_FRAMES))
     if args.mode == "free-op-by-op":
         return run_free_op_by_op(args.row, kw, out_dir, int(args.frames or ev.N_FRAMES))
-    if args.mode == "traces":
-        with open(os.path.join(out_dir, "free.json")) as f:
-            free = json.load(f)
-        obo = os.path.join(out_dir, "free_op_by_op.json")
-        if os.path.exists(obo):
-            with open(obo) as f:
-                return write_traces(args.traces, args.row, free, json.load(f))
-        return write_traces(args.traces, args.row, free)
     frames = frame_list(args.frames, ev.N_FRAMES)
     if args.mode == "carried":
         return run_carried(args.row, kw, out_dir, frames)

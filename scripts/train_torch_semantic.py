@@ -32,9 +32,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from ra_slam_tpu_torch.core.device import resolve_device  # noqa: E402
 from ra_slam_tpu_torch.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec  # noqa: E402
 from ra_slam_tpu_torch.models.segmentation import SegmentationNet, make_train_step  # noqa: E402
-from ra_slam_tpu_torch.pipeline.system import resolve_device  # noqa: E402
 from ra_slam_tpu_torch.utils.convert import seg_state_dict_from_flax, seg_state_dict_to_flax  # noqa: E402
 from ra_slam_tpu_torch.utils.flax_msgpack import packb, unpackb  # noqa: E402
 

@@ -1,5 +1,5 @@
 """Write the carried-step fixtures of tests/test_torch_lockstep.py and
-chip_smoke.py phase 20b: `lockstep_<row>_f<frame>.npz`.
+tests/test_torch_cuda_slam.py: `lockstep_<row>_f<frame>.npz`.
 
 The JAX package tracks a row of the EVAL matrix (hardened VGA scene,
 seed 0; `ba1` by default: BA at every keyframe) jitted, as it runs.

@@ -2,7 +2,8 @@
 trajectory matrix: the same rows with the same settings, the same
 acceptance rule, and the only file written is --out. The tracking runs
 themselves are replaced by a recorder here (150 VGA frames per row need
-the GPU: chip_smoke.py phase 20 and the matrix run on the card)."""
+the GPU: tests/test_torch_cuda_slam.py's seed-0 rows and the matrix run
+on the card)."""
 
 import importlib.util
 import json

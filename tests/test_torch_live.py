@@ -101,10 +101,12 @@ RS_CAMERA = CameraConfig(fx=SPEC.fx, fy=SPEC.fy, cx=SPEC.cx, cy=SPEC.cy, width=S
 DEPTH_CAMERA = CameraConfig(fx=150.0, fy=151.0, cx=121.5, cy=88.0, width=SPEC.width, height=SPEC.height)
 
 
-def _live_main(tmp_path, monkeypatch, extra=(), rs_camera=RS_CAMERA, duration=1.0):
-    """`live.main --device cpu` on a config holding an identity stereo
-    calibration (and the lines `extra`), with fake cameras in place of
-    the drivers; returns (the system `run` was given, the fakes)."""
+def _live_main(tmp_path, monkeypatch, extra=(), rs_camera=RS_CAMERA, frames=None):
+    """`live.main --device cpu --duration 1.0` on a config holding an
+    identity stereo calibration (and the lines `extra`), with fake cameras
+    in place of the drivers; with `frames`, `run` ends the session once
+    both threads have fed that many frames, not on the clock. Returns
+    (the system `run` was given, the fakes)."""
     text = "\n".join([
         f"Camera.fx: {SPEC.fx}", f"Camera.fy: {SPEC.fy}", f"Camera.cx: {SPEC.cx}", f"Camera.cy: {SPEC.cy}",
         f"Camera.cols: {SPEC.width}", f"Camera.rows: {SPEC.height}",
@@ -143,10 +145,12 @@ def _live_main(tmp_path, monkeypatch, extra=(), rs_camera=RS_CAMERA, duration=1.
 
     def spy(system, stereo, rgbd, **kw):
         seen["system"] = rgbd.system = system  # its first frame waits for a tracked pose
+        if frames is not None:
+            kw.update(stop_after_frames=frames, stop_after_s=None)
         return saved(system, stereo, rgbd, **kw)
 
     monkeypatch.setattr(live, "run", spy)
-    live.main(["--config", str(cfg_path), "--device", "cpu", "--duration", str(duration), "--out", str(tmp_path / "v")])
+    live.main(["--config", str(cfg_path), "--device", "cpu", "--duration", "1.0", "--out", str(tmp_path / "v")])
     return seen["system"], made
 
 
@@ -174,15 +178,17 @@ def test_main_fuses_with_the_depth_camera(tmp_path, monkeypatch, source):
     tracking camera to the rectified ZED and fuses the RGB-D frames with
     the depth camera's intrinsics, from the config's `DepthCamera`
     section or else from the RealSense's stream; frames fuse through
-    `live.run`'s two threads."""
+    `live.run`'s two threads. The session ends after two frames of each
+    camera, not on the clock: the first stereo pair alone takes seconds
+    on a loaded CPU, and a frame the clock cuts off is never fused."""
     if source == "config_section":
         d = DEPTH_CAMERA
         extra = [f"DepthCamera.{k}: {v}" for k, v in (("fx", d.fx), ("fy", d.fy), ("cx", d.cx), ("cy", d.cy),
                                                       ("cols", d.width), ("rows", d.height))]
-        system, _ = _live_main(tmp_path, monkeypatch, extra, duration=5.0)
+        system, _ = _live_main(tmp_path, monkeypatch, extra, frames=2)
         assert system.cfg.depth_camera == dataclasses.replace(DEPTH_CAMERA, depthmap_factor=5000.0)
     else:
-        system, _ = _live_main(tmp_path, monkeypatch, rs_camera=DEPTH_CAMERA, duration=5.0)
+        system, _ = _live_main(tmp_path, monkeypatch, rs_camera=DEPTH_CAMERA, frames=2)
         assert system.cfg.depth_camera == DEPTH_CAMERA
     assert system.tsdf_cam == _tsdf_cam_of(DEPTH_CAMERA)
     assert system.cfg.camera.fx != DEPTH_CAMERA.fx

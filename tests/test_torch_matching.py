@@ -60,8 +60,9 @@ def test_hamming_matrix_popcount_matches_jax(ka, kb):
 
 @pytest.mark.parametrize("ka,kb", [(1, 1), (130, 300), (300, 130), (257, 511), (64, 128)])
 def test_pm1_product_identity(ka, kb):
-    """The identities the CUDA kernel and chip_smoke.py's library
-    yardstick rely on, exactly: (256 - pm1(a) @ pm1(b)^T) / 2, in int32
+    """The identities the CUDA kernel and the library yardstick of
+    scripts/bench_torch_kernels.py rely on, exactly: (256 - pm1(a) @
+    pm1(b)^T) / 2, in int32
     from the port's unpack_pm1 (the yardstick), and popc(a) + popc(b) -
     2 popc(a & b) summed over the words (the kernel's binary tensor-core
     product) both equal the popcount distances and the JAX package's

@@ -7,7 +7,7 @@ interpret mode, and (2) the JAX package's f32 einsum branch of
 `integrate`. The port reads the same samples from a "virtual image": the
 tiles laid end to end as `img6 [6, V*256]`, voxel (b, i) at pixel
 `b*256 + idx[b, i]`. The CUDA kernel itself is held against the plain
-version on the card (tests/test_torch_cuda.py, chip_smoke.py).
+version on the card (tests/test_torch_cuda.py).
 """
 
 import jax.numpy as jnp
