@@ -15,13 +15,28 @@ values, and the centroid moments sum bf16 pixels in float32.
 
 Descriptors are [K, 8] 32-bit words carried as int32 bit patterns (the
 JAX package's uint32 words viewed as int32).
+
+On a CUDA device `detect_and_describe` replays a CUDA graph: its body
+is a pure function of the image whose shapes are fixed by the image's
+shape and the `FeatureConfig`, and which reads nothing back to the host,
+so every call issues the same ~3000 small launches in the same order.
+The first call for an (image shape, dtype, config, device) runs the body
+once on a side stream (the lazy uploads and workspaces), then captures
+it into a static input and static outputs; every call copies its image
+in, replays, and returns clones of the outputs. The replay runs the very
+kernels the eager body launches, in the same order on the same values,
+so its keypoints equal the eager body's bit for bit. The counters
+`orb.graph_captures` and `orb.graph_replays` (`GRAPH_CAPTURES`,
+`GRAPH_REPLAYS`) say how often it engages; on the CPU the eager body
+runs and neither moves.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
-from typing import Tuple
+import threading
+from dataclasses import dataclass, fields
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +50,11 @@ from ra_slam_tpu_torch.utils.profiling import TRACE
 PATCH_RADIUS = 15  # 31x31 orientation / descriptor patch
 NUM_PAIRS = 256
 DESC_WORDS = 8  # 256 bits packed into 8 x 32-bit words
+
+GRAPH_CAPTURES = 0  # CUDA graphs of the body captured (one per key)
+GRAPH_REPLAYS = 0  # calls served by a graph's replay
+TRACE.expose("orb.graph_captures", lambda: GRAPH_CAPTURES)
+TRACE.expose("orb.graph_replays", lambda: GRAPH_REPLAYS)
 
 
 @dataclass(frozen=True)
@@ -71,6 +91,19 @@ def _centroid_offsets() -> Tuple[np.ndarray, np.ndarray]:
     return xs[inside].astype(np.int32), ys[inside].astype(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_pattern(device: torch.device) -> torch.Tensor:
+    """`_pattern()` as float32 on `device`, uploaded once (a copy from the
+    host may not run inside a graph's capture)."""
+    return torch.from_numpy(_pattern()).to(device, torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_centroid_offsets(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_centroid_offsets()` on `device`, uploaded once."""
+    return tuple(torch.from_numpy(a).to(device) for a in _centroid_offsets())
+
+
 def _gather(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Clamped 2-D gather of img [H, W] at int coords (any shape)."""
     H, W = img.shape
@@ -87,7 +120,7 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 def orientation(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid angle (rad) of keypoints uv [K, 2] on img."""
-    xs, ys = (torch.from_numpy(a).to(img.device) for a in _centroid_offsets())
+    xs, ys = _device_centroid_offsets(img.device)
     xi = to_i32(torch.round(uv[:, 0]))[:, None] + xs[None]
     yi = to_i32(torch.round(uv[:, 1]))[:, None] + ys[None]
     vals = _gather(img, xi, yi)  # [K, P]
@@ -99,7 +132,7 @@ def orientation(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
 def orb_descriptors(img_blur: torch.Tensor, uv: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     """Steered-BRIEF descriptors [K, 8] int32 of keypoints on one
     pre-smoothed level."""
-    pat = torch.from_numpy(_pattern()).to(img_blur.device, torch.float32)
+    pat = _device_pattern(img_blur.device)
     ca = torch.cos(angle)[:, None]
     sa = torch.sin(angle)[:, None]
     px = torch.cat([pat[:, 0], pat[:, 2]])  # [512]: first then second points
@@ -134,7 +167,15 @@ def keypoint_capacity(cfg: FeatureConfig) -> int:
 
 def detect_and_describe(gray: torch.Tensor, cfg: FeatureConfig) -> Keypoints:
     """ORB on one [H, W] float32 grayscale image: pyramid -> FAST ->
-    orientation -> steered BRIEF, `keypoint_capacity(cfg)` slots."""
+    orientation -> steered BRIEF, `keypoint_capacity(cfg)` slots. On a
+    CUDA device a replay of the body's graph for this shape and config."""
+    if gray.device.type != "cuda":
+        return _detect(gray, cfg)
+    return _replay(gray, cfg)
+
+
+def _detect(gray: torch.Tensor, cfg: FeatureConfig) -> Keypoints:
+    """The body of `detect_and_describe`, eager."""
     with TRACE.span("orb.pyramid"):
         levels = build_pyramid(gray, cfg.num_levels, cfg.scale_factor)
     with TRACE.span("orb.levels"):
@@ -149,6 +190,56 @@ def detect_and_describe(gray: torch.Tensor, cfg: FeatureConfig) -> Keypoints:
             level = torch.full((quota,), lvl, dtype=torch.int32, device=gray.device)
             parts.append((uv * cfg.scale_factor**lvl, level, score, ang, desc, valid))
         return Keypoints(*(torch.cat(list(p)) for p in zip(*parts)))
+
+
+@dataclass(frozen=True)
+class _Graph:
+    """One captured body: its graph, static input and static outputs."""
+
+    graph: "torch.cuda.CUDAGraph"
+    gray: torch.Tensor
+    out: Keypoints
+
+
+# graphs by (device, dtype, shape, config); the lock also orders the
+# static buffers' use between threads
+_GRAPHS: Dict[tuple, _Graph] = {}
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _capture(gray: torch.Tensor, cfg: FeatureConfig) -> _Graph:
+    """Warm the body on a side stream, then capture it on that stream.
+    "thread_local": another thread's launches and allocations (`live.run`
+    fuses on one) may go on during the capture."""
+    static = torch.empty(gray.shape, dtype=gray.dtype, device=gray.device)
+    static.copy_(gray)
+    side = torch.cuda.Stream(gray.device)
+    side.wait_stream(torch.cuda.current_stream(gray.device))
+    with torch.cuda.stream(side):
+        _detect(static, cfg)
+    torch.cuda.current_stream(gray.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        out = _detect(static, cfg)
+    return _Graph(graph, static, out)
+
+
+def _replay(gray: torch.Tensor, cfg: FeatureConfig) -> Keypoints:
+    """Copy `gray` into the key's graph (captured on the first call),
+    replay it on the current stream, and clone its outputs: a caller may
+    keep one frame's keypoints while the next frame is detected."""
+    global GRAPH_CAPTURES, GRAPH_REPLAYS
+    key = (gray.device, gray.dtype, tuple(gray.shape), cfg)
+    with _GRAPHS_LOCK, torch.cuda.device(gray.device):
+        g = _GRAPHS.get(key)
+        if g is None:
+            g = _GRAPHS[key] = _capture(gray, cfg)
+            GRAPH_CAPTURES += 1
+        with TRACE.span("orb.replay"):
+            g.gray.copy_(gray)
+            g.graph.replay()
+            GRAPH_REPLAYS += 1
+            return Keypoints(*(getattr(g.out, f.name).clone() for f in fields(Keypoints)))
 
 
 def detect_and_describe_rgb(rgb: torch.Tensor, cfg: FeatureConfig) -> Keypoints:

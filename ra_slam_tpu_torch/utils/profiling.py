@@ -29,7 +29,8 @@ CUDA kernel ends), so the span is the device's time too.
 
 The program's counters stay in their modules (`slam.system.SYNCS`,
 `tsdf_fuse.LAUNCHES`, `hamming.LAUNCHES`, `io.sens.HOST_RESIZES`,
-`rectify.CALLS`, `pose_buffer.INTERPOLATED`, `_build.BUILD_SECONDS`);
+`rectify.CALLS`, `pose_buffer.INTERPOLATED`, `orb.GRAPH_CAPTURES`,
+`orb.GRAPH_REPLAYS`, `_build.BUILD_SECONDS`);
 each module `expose`s its own, and `TRACE.counters()` reads them all as
 they stand. They count whether or not the registry is on.
 

@@ -3,8 +3,9 @@ with loop closing off and on (`eval.trajectory_bench`, 150 VGA frames),
 BA and PGO from its final state against the CPU, the distributed BA
 solver and `refine_map` over a LocalMesh, stereo tracking, `live.run`
 with fake cameras, the EVAL matrix's seed-0 rows, the carried steps of
-tests/test_torch_lockstep.py, and every ORB pyramid the port builds, card
-against CPU bit for bit.
+tests/test_torch_lockstep.py, every ORB pyramid the port builds, card
+against CPU bit for bit, and ORB's CUDA graph against the eager body and
+the CPU.
 
 They skip where torch sees no CUDA device. This file imports no JAX, so
 that it runs on a machine without it:
@@ -47,6 +48,9 @@ TOL = {
     "eval_ate_m": 0.002,
     # a carried step's pose against the JAX package's op-by-op step
     "lockstep_pose": 1e-5,
+    # a keypoint's orientation, card vs CPU, rad (tests/test_torch_features.py's
+    # ANGLE_TOL: the centroid moments summed in another order)
+    "angle_vs_cpu": 1e-5,
 }
 # the EVAL matrix's seed-0 rows, loop on / off, of the JAX package as it
 # stands, run op by op (its source's own float32 operations: scripts/
@@ -66,6 +70,15 @@ PYRAMID_SHAPES = {
     "672x376_8_levels": (ZED_VGA, 8, dict(max_num_keypoints=1000, num_levels=3)),
     "320x240_4_levels": ((320, 240), 4, dict(max_num_keypoints=300, num_levels=4)),
 }
+# ORB's CUDA graph at the shapes the benchmark tracks: the facade's default
+# at VGA, the robot's (benchmark/configs/zed_l515_robot.json "tracking") at
+# the ZED's eye size
+ORB_GRAPH_SHAPES = {
+    "640x480_default": ((640, 480), {}),
+    "672x376_robot": (ZED_VGA, dict(max_num_keypoints=1000, num_levels=8, scale_factor=1.2)),
+}
+ORB_GRAPH_FRAMES = (1, 20, 40, 60, 80, 100)
+KEYPOINT_FIELDS = ("uv", "valid", "score", "desc", "level", "angle")
 
 
 @pytest.fixture
@@ -505,3 +518,73 @@ def test_pyramid_and_orb_card_equal_cpu(cuda, case):
     kc, kg = detect_and_describe(gray, fcfg), detect_and_describe(gray.to(cuda), fcfg)
     for k in ("uv", "valid", "score", "desc"):
         assert torch.equal(getattr(kc, k), getattr(kg, k).cpu()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ORB_GRAPH_SHAPES))
+def test_orb_graph_replay_equals_eager(cuda, case, monkeypatch):
+    """`detect_and_describe` on the card replays one CUDA graph a shape.
+    Six frames of the EVAL scene through it: each keypoint field equals
+    the eager body's on the card bit for bit, and the CPU's (the valid
+    keypoints' angles within `TOL["angle_vs_cpu"]`); frame 1's
+    keypoints stay as they were while frames 2-6 are detected; one capture
+    and six replays. Memory: the replays after the capture raise
+    `max_memory_allocated` by no more than eager detection's own peak
+    (they allocate only their input and clones), and the first call, the
+    warm-up and the capture with it, needs no more bytes than eager
+    detection and the graph's static buffers. That call is held to the
+    bytes requested: the graph's private pool cuts fresh segments, whose
+    blocks round otherwise than the warm pool's (about 1 MB more of
+    `max_memory_allocated` at VGA)."""
+    from ra_slam_tpu_torch.core.config import FeatureConfig
+    from ra_slam_tpu_torch.features import orb
+    from ra_slam_tpu_torch.features.pyramid import rgb_to_gray
+    from ra_slam_tpu_torch.io.synthetic import SyntheticBoxDataset, SyntheticCameraSpec
+
+    monkeypatch.setattr(orb, "_GRAPHS", {})  # a capture of this test's own
+    (w, h), feature_kw = ORB_GRAPH_SHAPES[case]
+    fcfg, f = FeatureConfig(**feature_kw), w / 2.0
+    spec = SyntheticCameraSpec(fx=f, fy=f, cx=(w - 1) / 2.0, cy=(h - 1) / 2.0, width=w, height=h)
+    ds = SyntheticBoxDataset(num_frames=120, cam=spec, radius=1.0, depth_noise=0.005, clutter=6)
+    grays = [rgb_to_gray(torch.as_tensor(ds.frame(i).rgb)) for i in ORB_GRAPH_FRAMES]
+    host = lambda kp: {k: getattr(kp, k).cpu() for k in KEYPOINT_FIELDS}
+
+    def peaks(fn):
+        """(allocated, requested) peak bytes of fn() above the bytes held
+        before it, and its result."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s0 = torch.cuda.memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        s1 = torch.cuda.memory_stats()
+        return tuple(s1[f"{k}.all.peak"] - s0[f"{k}.all.current"]
+                     for k in ("allocated_bytes", "requested_bytes")), out
+
+    eager = [host(orb._detect(g.to(cuda), fcfg)) for g in grays]  # the first also warms
+    (eager_alloc, eager_req), _ = peaks(lambda: orb._detect(grays[0].to(cuda), fcfg))
+
+    captures, replays = orb.GRAPH_CAPTURES, orb.GRAPH_REPLAYS
+    (_, first_req), first = peaks(lambda: orb.detect_and_describe(grays[0].to(cuda), fcfg))
+    kept = {k: getattr(first, k).clone() for k in KEYPOINT_FIELDS}
+    (rest_alloc, _), rest = peaks(lambda: [host(orb.detect_and_describe(g.to(cuda), fcfg)) for g in grays[1:]])
+    got = [host(first)] + rest
+    assert (orb.GRAPH_CAPTURES - captures, orb.GRAPH_REPLAYS - replays) == (1, len(grays))
+    (g,) = orb._GRAPHS.values()
+    static = sum(t.numel() * t.element_size() for t in [g.gray] + [getattr(g.out, k) for k in KEYPOINT_FIELDS])
+    assert rest_alloc <= eager_alloc, (rest_alloc, eager_alloc)
+    assert first_req <= eager_req + static, (first_req, eager_req, static)
+
+    for k in KEYPOINT_FIELDS:
+        assert torch.equal(getattr(first, k), kept[k]), f"frame 1's {k} changed"
+    for i, (gray, a, b) in enumerate(zip(grays, got, eager)):
+        c = host(orb.detect_and_describe(gray, fcfg))
+        for k in KEYPOINT_FIELDS:
+            assert torch.equal(a[k], b[k]), f"frame {ORB_GRAPH_FRAMES[i]} {k}: replay vs eager"
+            if k != "angle":
+                assert torch.equal(a[k], c[k]), f"frame {ORB_GRAPH_FRAMES[i]} {k}: replay vs CPU"
+        # the centroid moments are a CUDA reduction on the card, summed in
+        # another order than the CPU's; the descriptors they steer are equal
+        v = a["valid"]
+        d = torch.remainder(a["angle"][v] - c["angle"][v] + np.pi, 2 * np.pi) - np.pi  # across +-pi
+        assert d.abs().max() <= TOL["angle_vs_cpu"], ORB_GRAPH_FRAMES[i]

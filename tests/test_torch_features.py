@@ -229,3 +229,31 @@ def test_level_quotas_match_jax():
     for kw in (FEAT_KW, {}, dict(max_num_keypoints=600, num_levels=4)):
         assert torb.level_quotas(FeatureConfig(**kw)) == jorb.level_quotas(JaxFeatureConfig(**kw))
     np.testing.assert_array_equal(torb._pattern(), jorb._pattern())
+
+
+def test_detect_never_captures_on_cpu():
+    """On the CPU `detect_and_describe` runs the eager body: no graph is
+    captured or replayed, and it returns what the body returns."""
+    before = (torb.GRAPH_CAPTURES, torb.GRAPH_REPLAYS, len(torb._GRAPHS))
+    gray, cfg = _t(_gray("frame")), FeatureConfig(**FEAT_KW)
+    a, b = torb.detect_and_describe(gray, cfg), torb._detect(gray, cfg)
+    assert (torb.GRAPH_CAPTURES, torb.GRAPH_REPLAYS, len(torb._GRAPHS)) == before == (0, 0, 0)
+    for k in ("uv", "level", "score", "angle", "desc", "valid"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+def test_patch_constants_uploaded_once():
+    """The BRIEF pattern and the centroid offsets are uploaded once a
+    device: repeated calls and detections reuse the same tensors, which
+    hold `_pattern()` / `_centroid_offsets()`."""
+    cpu = torch.device("cpu")
+    pat, offs = torb._device_pattern(cpu), torb._device_centroid_offsets(cpu)
+    misses = (torb._device_pattern.cache_info().misses, torb._device_centroid_offsets.cache_info().misses)
+    torb.detect_and_describe(_t(_gray("noise")), FeatureConfig(**FEAT_KW))
+    assert torb._device_pattern(cpu) is pat and torb._device_centroid_offsets(cpu) is offs
+    assert (torb._device_pattern.cache_info().misses, torb._device_centroid_offsets.cache_info().misses) == misses
+    assert pat.dtype == torch.float32
+    np.testing.assert_array_equal(pat.numpy(), torb._pattern().astype(np.float32))
+    for t, a in zip(offs, torb._centroid_offsets()):
+        assert t.dtype == torch.int32
+        np.testing.assert_array_equal(t.numpy(), a)
