@@ -2,11 +2,13 @@
 
 Same fields and defaults as the JAX package's `CameraConfig`,
 `TsdfConfig`, `FeatureConfig`, `TrackingConfig` and `SystemConfig`, and
-one field more: `SystemConfig.depth_camera`, the depth camera's own
-intrinsics where it is not the tracking camera (the robot's L515 beside
-its ZED). The BA config arrives with the bundle-adjustment port. `yaml`
-is imported only inside `load_yaml_config`, so importing this module
-needs no PyYAML.
+two fields more in `SystemConfig`: `depth_camera`, the depth camera's
+own intrinsics where it is not the tracking camera (the robot's L515
+beside its ZED); and `dense_stereo`, where the depth frames are the
+stereo tracking camera's own (the ZED's dense depth,
+`DenseStereoConfig`). The BA config arrives with the bundle-adjustment
+port. `yaml` is imported only inside `load_yaml_config`, so importing
+this module needs no PyYAML.
 """
 
 from __future__ import annotations
@@ -173,6 +175,18 @@ class BAConfig:
 
 
 @dataclass(frozen=True)
+class DenseStereoConfig:
+    """The ZED's own depth: the settings of `features/stereo.py:
+    dense_stereo_depth` that a rig chooses, as `io/cameras.py:
+    ZedDepthCamera` runs it on each rectified pair (the ZED SDK's depth
+    engine in the reference); the block, census radius, uniqueness and
+    least depth are the function's defaults."""
+
+    max_disparity: int = 64  # px searched, 0..max_disparity-1
+    max_depth: float = 10.0  # m
+
+
+@dataclass(frozen=True)
 class SystemConfig:
     camera: CameraConfig = field(default_factory=CameraConfig)
     tsdf: TsdfConfig = field(default_factory=TsdfConfig)
@@ -185,6 +199,10 @@ class SystemConfig:
     # where it is another camera than `camera`, the tracking camera;
     # None: the depth frames come from `camera`
     depth_camera: Optional[CameraConfig] = None
+    # where set, the depth frames are the stereo tracking camera's own: its
+    # rectified left view and the dense depth of each pair (no depth
+    # camera, no extrinsics)
+    dense_stereo: Optional[DenseStereoConfig] = None
 
 
 def _get(node: dict, key: str, default):
@@ -219,8 +237,9 @@ def load_yaml_config(path: str) -> SystemConfig:
     camera, tsdf, feature and extrinsics keys of the JAX package's
     loader). A `DepthCamera` section (nested, or flat `DepthCamera.fx`
     ... keys; the `Camera` section's key names: fx, fy, cx, cy, cols,
-    rows, fps, depthmap_factor) gives `depth_camera`; without one it is
-    None and the result is the JAX loader's."""
+    rows, fps, depthmap_factor) gives `depth_camera`; a `DenseStereo`
+    section (nested or flat; `DenseStereoConfig`'s field names) gives
+    `dense_stereo`. Without them the result is the JAX loader's."""
     import yaml
 
     with open(path) as f:
@@ -230,6 +249,11 @@ def load_yaml_config(path: str) -> SystemConfig:
     cam = _camera(cam_node, node.get("depthmap_factor", cam_node.get("depthmap_factor", 5000.0)))
     depth_node = _camera_node(node, "DepthCamera")
     depth_cam = _camera(depth_node, depth_node.get("depthmap_factor", 5000.0)) if depth_node else None
+    dense_node = _camera_node(node, "DenseStereo")
+    dense = None
+    if dense_node:
+        dense = DenseStereoConfig(**{f_.name: type(f_.default)(dense_node[f_.name])
+                                     for f_ in dataclasses.fields(DenseStereoConfig) if f_.name in dense_node})
 
     tsdf_node = node.get("tsdf", {}) or {}
     tsdf_kwargs = {}
@@ -253,5 +277,5 @@ def load_yaml_config(path: str) -> SystemConfig:
     extrinsics = node.get("Extrinsics", node.get("extrinsics"))
     return SystemConfig(
         camera=cam, tsdf=TsdfConfig(**tsdf_kwargs), feature=feat, extrinsics=extrinsics,
-        depth_camera=depth_cam,
+        depth_camera=depth_cam, dense_stereo=dense,
     )

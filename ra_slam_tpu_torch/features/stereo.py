@@ -21,6 +21,14 @@ at 1e9 is 64): there, near the left border, the second-best cost, the
 parabola's neighbours and the right view's costs may differ from JAX's.
 Depth divides a tensor by a tensor (torch's `float / tensor` is a
 reciprocal and a multiply).
+
+`dense_stereo_depth` reports to `utils/profiling.py:TRACE`: the span
+`stereo.dense` around `stereo.census`, `stereo.cost` (the volume and its
+popcount), `stereo.aggregate` (the box sums) and `stereo.select`
+(winner-take-all, uniqueness, left-right check, parabola, depth), and
+the counters `stereo.dense_calls` (`DENSE_CALLS`, depth maps computed)
+and `stereo.dense_entries` (`DENSE_ENTRIES`, H * W * D cost-volume
+entries, counted from the shapes on the host).
 """
 
 from __future__ import annotations
@@ -30,6 +38,12 @@ from typing import Tuple
 import torch
 
 from ra_slam_tpu_torch.slam.landmarks import scatter_rows
+from ra_slam_tpu_torch.utils.profiling import TRACE
+
+DENSE_CALLS = 0  # depth maps `dense_stereo_depth` computed
+DENSE_ENTRIES = 0  # their cost volumes' H * W * D entries
+TRACE.expose("stereo.dense_calls", lambda: DENSE_CALLS)
+TRACE.expose("stereo.dense_entries", lambda: DENSE_ENTRIES)
 
 
 def _gather_patches(img: torch.Tensor, vi: torch.Tensor, ui: torch.Tensor, dy, dx) -> torch.Tensor:
@@ -152,10 +166,21 @@ def census_transform(img: torch.Tensor, radius: int = 2) -> torch.Tensor:
     return bits
 
 
+_POPCOUNT_TABLES: dict = {}  # device -> the 256-entry byte table there
+
+
+def _popcount_table(device) -> torch.Tensor:
+    table = _POPCOUNT_TABLES.get(device)
+    if table is None:
+        table = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.uint8, device=device)
+        _POPCOUNT_TABLES[device] = table
+    return table
+
+
 def _popcount(x: torch.Tensor) -> torch.Tensor:
     """Set bits of non-negative int32 values below 2^24, as uint8 (three
-    byte-table lookups)."""
-    table = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.uint8, device=x.device)
+    lookups in a byte table made once per device)."""
+    table = _popcount_table(x.device)
     return table[x & 0xFF] + table[(x >> 8) & 0xFF] + table[(x >> 16) & 0xFF]
 
 
@@ -189,20 +214,48 @@ def dense_stereo_depth(
     with the left-right check, the uniqueness ratio and the subpixel
     parabola. Returns (depth [H, W] float32, 0 where invalid; valid
     [H, W] bool)."""
+    global DENSE_CALLS, DENSE_ENTRIES
     H, W = gray_l.shape
     D = max_disparity
     dev = gray_l.device
-    cl = census_transform(gray_l, census_radius)
-    cr = census_transform(gray_r, census_radius)
+    DENSE_CALLS += 1
+    DENSE_ENTRIES += H * W * D
+    with TRACE.span("stereo.dense"):
+        with TRACE.span("stereo.census"):
+            cl = census_transform(gray_l, census_radius)
+            cr = census_transform(gray_r, census_radius)
+        u = torch.arange(W, device=dev)
+        d = torch.arange(D, device=dev)
+        with TRACE.span("stereo.cost"):
+            uc = torch.clamp(u[None, :] - d[:, None], 0, W - 1)  # right column of (d, u)
+            cost = _popcount(cl[:, None, :] ^ cr[:, uc]).to(torch.float32)  # [H, D, W]
+            inb = (u[None, :] - d[:, None]) >= 0
+            cost = torch.where(inb[None], cost, COST_SENTINEL)
+        with TRACE.span("stereo.aggregate"):
+            agg = _box_sum(cost, block // 2)  # [H, D, W]
+        del cost
+        with TRACE.span("stereo.select"):
+            return _select(agg, u, d, focal_x_baseline, min_depth, max_depth, uniqueness)
 
-    u = torch.arange(W, device=dev)
-    d = torch.arange(D, device=dev)
-    uc = torch.clamp(u[None, :] - d[:, None], 0, W - 1)  # right column of (d, u)
-    cost = _popcount(cl[:, None, :] ^ cr[:, uc]).to(torch.float32)  # [H, D, W]
-    inb = (u[None, :] - d[:, None]) >= 0
-    cost = torch.where(inb[None], cost, COST_SENTINEL)
-    agg = _box_sum(cost, block // 2)  # [H, D, W]
-    del cost
+
+def _left_right_ok(agg: torch.Tensor, u: torch.Tensor, d: torch.Tensor, best_d: torch.Tensor) -> torch.Tensor:
+    """Left-right consistency: the matched right pixel's own best
+    disparity is within 1 of the left pixel's (right-view cost at (d, v,
+    u_r) = left cost at column u_r + d)."""
+    H, D, W = agg.shape
+    ul = torch.clamp(u[None, :] + d[:, None], 0, W - 1)  # [D, W]
+    right_cost = torch.gather(agg, 2, ul[None].expand(H, D, W))  # [H, D, W]
+    best_r = torch.argmin(right_cost, dim=1)
+    del right_cost
+    ur = torch.clamp(u[None, :] - best_d, 0, W - 1)
+    return (torch.gather(best_r, 1, ur) - best_d).abs() <= 1
+
+
+def _select(agg, u, d, focal_x_baseline, min_depth, max_depth, uniqueness):
+    """Winner-take-all over an aggregated [H, D, W] volume, with the
+    uniqueness ratio, the left-right check and the subpixel parabola:
+    (depth [H, W], 0 where invalid; valid [H, W])."""
+    D = agg.shape[1]
 
     best_d = torch.argmin(agg, dim=1)  # [H, W], the first minimum
     ar = agg.movedim(1, -1)  # [H, W, D]
@@ -212,14 +265,7 @@ def dense_stereo_depth(
     second = torch.where(near, COST_SENTINEL, ar).amin(dim=-1)
     uniq_ok = c0 * uniqueness < second
 
-    # left-right consistency: the matched right pixel's own best disparity
-    # (right-view cost at (d, v, u_r) = left cost at column u_r + d)
-    ul = torch.clamp(u[None, :] + d[:, None], 0, W - 1)  # [D, W]
-    right_cost = torch.gather(agg, 2, ul[None].expand(H, D, W))  # [H, D, W]
-    best_r = torch.argmin(right_cost, dim=1)
-    del right_cost
-    ur = torch.clamp(u[None, :] - best_d, 0, W - 1)
-    lr_ok = (torch.gather(best_r, 1, ur) - best_d).abs() <= 1
+    lr_ok = _left_right_ok(agg, u, d, best_d)
 
     # subpixel parabola on the aggregated cost
     dm = torch.clamp(best_d, 1, D - 2)

@@ -8,9 +8,10 @@ is needed anywhere else (the offline readers replay recorded data).
 Pixels never go through cv2: a BGR frame becomes RGB by a numpy flip,
 and rectification is `core/rectify.py`'s.
 
-`ZedDepthCamera` plays the ZED SDK's depth engine: the rectified pair
-feeds tracking, and the left image with `features/stereo.py:
-dense_stereo_depth` of the pair, computed on `device`, feeds the TSDF.
+`ZedDepthCamera` plays the ZED SDK's depth engine: the pair, rectified
+on `device`, feeds tracking, and the left image with `features/stereo.py:
+dense_stereo_depth` of the pair, computed there and left there, feeds
+the TSDF.
 """
 
 from __future__ import annotations
@@ -111,11 +112,14 @@ class ZedNativeCamera:
 
 
 class ZedDepthCamera:
-    """ZED-SDK-style stereo RGB-D: raw UVC stereo capture and dense census
-    disparity on `device`, returning (stereo pair, RGB-D frame) like
-    `ZED::GetStereoAndRGBDFrame`. `cam` is the rectified stereo source
-    (anything with `get_stereo_frame()` and `close()`); by default a
-    `ZedNativeCamera` opened with the other arguments."""
+    """ZED-SDK-style stereo RGB-D: raw UVC stereo capture, rectification
+    and dense census disparity on `device`, returning (stereo pair, RGB-D
+    frame) like `ZED::GetStereoAndRGBDFrame`, as uint8 / float32 tensors
+    on the device. `cam` is a source of rectified pairs (anything with
+    `get_stereo_frame()` and `close()`); by default a `ZedNativeCamera`
+    opened raw with the other arguments, whose pairs `rectifier`
+    rectifies on the device. `max_disparity` and `max_depth` set the
+    dense depth (a `DenseStereoConfig`'s fields)."""
 
     def __init__(self, rectifier, focal_x_baseline: float, device_id: int = 0, width: int = 1344,
                  height: int = 376, fps: int = 60, max_disparity: int = 64, max_depth: float = 10.0,
@@ -123,23 +127,38 @@ class ZedDepthCamera:
         self.device = resolve_device(device)  # raises for cuda without a card, before the camera opens
         self.focal_x_baseline = focal_x_baseline
         self.max_disparity, self.max_depth = max_disparity, max_depth
-        self.cam = cam if cam is not None else ZedNativeCamera(rectifier, device_id, width, height, fps)
+        self.rectifier = rectifier if cam is None else None
+        self.cam = cam if cam is not None else ZedNativeCamera(None, device_id, width, height, fps)
 
-    def depth(self, left_rgb: np.ndarray, right_rgb: np.ndarray) -> np.ndarray:
+    def _upload(self, img) -> torch.Tensor:
+        if isinstance(img, torch.Tensor):
+            return img.to(self.device)
+        return torch.as_tensor(np.ascontiguousarray(img)).to(self.device)
+
+    def get_stereo_frame(self) -> Tuple[torch.Tensor, torch.Tensor, float]:
+        """(left, right, timestamp): the rectified pair on the camera's
+        device."""
+        left, right, ts = self.cam.get_stereo_frame()
+        left, right = self._upload(left), self._upload(right)
+        if self.rectifier is not None:
+            left, right = self.rectifier.rectify(left, right)
+        return left, right, ts
+
+    def depth(self, left, right) -> torch.Tensor:
         """[H, W] float32 depth in meters (0 where invalid) of a rectified
-        RGB pair, computed on the camera's device."""
+        RGB or gray pair, computed on the camera's device and left there."""
         from ra_slam_tpu_torch.features.pyramid import rgb_to_gray
         from ra_slam_tpu_torch.features.stereo import dense_stereo_depth
 
-        t = lambda a: rgb_to_gray(torch.as_tensor(np.ascontiguousarray(a)).to(self.device))
-        d, _ = dense_stereo_depth(t(left_rgb), t(right_rgb), self.focal_x_baseline,
+        gray = lambda a: rgb_to_gray(a) if a.ndim == 3 else a.to(torch.float32)
+        d, _ = dense_stereo_depth(gray(self._upload(left)), gray(self._upload(right)), self.focal_x_baseline,
                                   max_disparity=self.max_disparity, max_depth=self.max_depth)
-        return d.cpu().numpy()
+        return d
 
     def get_stereo_and_rgbd_frame(self):
         """((left, right, t_stereo), (rgb, depth, t_rgbd)): the pair feeds
         tracking, the left image and its dense depth the TSDF."""
-        left, right, ts = self.cam.get_stereo_frame()
+        left, right, ts = self.get_stereo_frame()
         return (left, right, ts), (left, self.depth(left, right), ts)
 
     def close(self) -> None:

@@ -17,7 +17,7 @@ mapping thread, and torch orders the two threads' launches on the
 device's stream.
 
     python -m ra_slam_tpu_torch.pipeline.live --config zed_l515.yaml \\
-        --model seg.msgpack --out /tmp/live --device cuda
+        --model seg.msgpack --out previews --device cuda
 
 `main` needs a ZED on UVC (cv2) and a RealSense (pyrealsense2); `run`
 takes any objects with `get_stereo_frame()` / `get_rgbd_frame()`. The
@@ -25,6 +25,18 @@ config's `Camera` section becomes the rectified ZED (as the reference's
 `GetAndSetConfig` rewrites it); the RGB-D frames are fused with the
 depth camera's own intrinsics: the config's `DepthCamera` section, else
 the RealSense's colour stream, which its depth is aligned to.
+
+A config with a `DenseStereo` section is the ZED alone as the RGB-D
+camera (the reference's `ZED::GetStereoAndRGBDFrame`): no RealSense is
+opened, and `io/cameras.py:ZedDepthCamera` grabs the raw pairs at twice
+the `Camera` section's width and rectifies them on the device. `run`
+drives both threads from it: the tracking thread feeds each pair and
+hands it on with its tracked pose; the mapping thread computes the
+tracked pairs' dense depth on the device and fuses each left image at
+its pair's own tracked pose.
+
+    python -m ra_slam_tpu_torch.pipeline.live --config zed_sdk.yaml \\
+        --model seg.msgpack --out previews --device cuda
 """
 
 from __future__ import annotations
@@ -33,18 +45,29 @@ import argparse
 import dataclasses
 import logging
 import os
+import queue
 import threading
 import time
 
+HANDOFF_PAIRS = 4  # tracked pairs the one-camera rig queues for its mapping thread
 
-def run(system, stereo_cam, rgbd_cam, out_dir=None, render_every_s=2.0, stop_after_s=None,
+
+def run(system, stereo_cam, rgbd_cam=None, out_dir=None, render_every_s=2.0, stop_after_s=None,
         stop_after_frames=None):
     """The reference's `run()` thread layout. Camera threads are daemon
     threads joined with a 30 s timeout on shutdown: the join lets
     in-flight device work finish, and a camera hung inside `get_*` is
     logged and abandoned rather than wedging the interpreter's exit. A
     camera thread's exception stops the session and is re-raised.
-    Returns (previews, slam_frames, tsdf_frames)."""
+    Without `rgbd_cam`, `stereo_cam` gives the depth too (`depth(left,
+    right)`, as `ZedDepthCamera`): each pair, once fed to tracking, waits
+    in a queue of `HANDOFF_PAIRS` for the mapping thread with its
+    tracking result (none is dropped). The mapping thread passes over the
+    pairs that did not track, and fuses each tracked pair's left image
+    and depth at that pair's own tracked pose: the tracker may be pairs
+    ahead by then, lost or recovered. `tsdf_frames` counts the pairs it
+    took, fused or passed over. Returns (previews, slam_frames,
+    tsdf_frames)."""
     stop = threading.Event()
     counts = {"slam": 0, "tsdf": 0}
     errors: list = []
@@ -72,11 +95,36 @@ def run(system, stereo_cam, rgbd_cam, out_dir=None, render_every_s=2.0, stop_aft
         finally:
             stop_if_done()
 
+    if rgbd_cam is not None:
+        feed_stereo, get_rgbd = system.feed_stereo_frame, rgbd_cam.get_rgbd_frame
+        feed_rgbd = system.feed_rgbd_frame
+    else:  # one camera: the tracked pairs, their depth and their own poses
+        pairs: queue.Queue = queue.Queue(maxsize=HANDOFF_PAIRS)
+
+        def feed_stereo(left, right, ts):
+            info = system.feed_stereo_frame(left, right, ts)  # read on the mapping thread
+            while not stop.is_set():
+                try:
+                    pairs.put((left, right, ts, info), timeout=0.05)
+                    return
+                except queue.Full:
+                    pass
+
+        def get_rgbd():
+            while not stop.is_set():
+                try:
+                    return pairs.get(timeout=0.05)
+                except queue.Empty:
+                    pass
+            return None  # stopped: `loop` leaves before feeding
+
+        def feed_rgbd(left, right, ts, info):
+            if info.tracked:
+                system.feed_rgbd_frame(left, stereo_cam.depth(left, right), ts, pose=info.pose)
+
     threads = [
-        threading.Thread(target=loop, name="t_slam",
-                         args=("slam", stereo_cam.get_stereo_frame, system.feed_stereo_frame)),
-        threading.Thread(target=loop, name="t_tsdf",
-                         args=("tsdf", rgbd_cam.get_rgbd_frame, system.feed_rgbd_frame)),
+        threading.Thread(target=loop, name="t_slam", args=("slam", stereo_cam.get_stereo_frame, feed_stereo)),
+        threading.Thread(target=loop, name="t_tsdf", args=("tsdf", get_rgbd, feed_rgbd)),
     ]
     for t in threads:
         t.daemon = True
@@ -138,11 +186,24 @@ def main(argv=None):
 
     from ra_slam_tpu_torch.core.config import load_yaml_config
     from ra_slam_tpu_torch.core.rectify import StereoRectifier, rewrite_camera_config
-    from ra_slam_tpu_torch.io.cameras import RealSenseCamera, ZedNativeCamera
+    from ra_slam_tpu_torch.io.cameras import RealSenseCamera, ZedDepthCamera, ZedNativeCamera
     from ra_slam_tpu_torch.pipeline.system import RaSlamSystem
 
     cfg = load_yaml_config(args.config)
     rectifier = StereoRectifier.from_yaml(args.calib or args.config, device=args.device)
+    if cfg.dense_stereo is not None:  # the ZED alone: its pairs and its own depth
+        w, h = rectifier.img_size
+        zed = ZedDepthCamera(rectifier, rectifier.focal_x_baseline, device_id=args.zed_device, width=2 * w,
+                             height=h, fps=int(cfg.camera.fps), max_disparity=cfg.dense_stereo.max_disparity,
+                             max_depth=cfg.dense_stereo.max_depth, device=args.device)
+        try:
+            system = RaSlamSystem(rewrite_camera_config(cfg, rectifier), args.device, segmentation_model=args.model)
+            n, n_slam, n_tsdf = run(system, zed, None, out_dir=args.out, stop_after_s=args.duration)
+            print(f"live session done: {system.num_integrated} frames fused "
+                  f"({n_slam} pairs fed / {n_tsdf} mapped), {n} previews")
+        finally:
+            zed.close()
+        return
     stereo = ZedNativeCamera(rectifier, device_id=args.zed_device)
     try:
         rgbd = RealSenseCamera()
@@ -155,7 +216,7 @@ def main(argv=None):
         system = RaSlamSystem(cfg, args.device, segmentation_model=args.model)
         n, n_slam, n_tsdf = run(system, stereo, rgbd, out_dir=args.out, stop_after_s=args.duration)
         print(f"live session done: {system.num_integrated} frames fused "
-              f"({n_slam} tracked / {n_tsdf} rgbd), {n} previews")
+              f"({n_slam} pairs fed / {n_tsdf} mapped), {n} previews")
     finally:
         stereo.close()
         rgbd.close()

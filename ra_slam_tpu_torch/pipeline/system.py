@@ -20,9 +20,17 @@ robot-facing API:
 
 Depth frames are fused with the depth camera's intrinsics:
 `cfg.depth_camera` where it is set (a depth camera beside the tracking
-camera, as the robot's L515 beside its ZED), else `cfg.camera`. A stereo
+camera, as the robot's L515 beside its ZED), else `cfg.camera`. Where
+`cfg.dense_stereo` is set the depth frames are the stereo tracking
+camera's own (the rectified left view and its dense depth, as
+`io/cameras.py:ZedDepthCamera` gives them): they are fused with
+`cfg.camera`, and a depth camera or extrinsics is refused. A stereo
 tracking camera's keypoint depths count out to `STEREO_DEPTH_THRESHOLD`
-baselines.
+baselines, and are searched from `MIN_KEYPOINT_DEPTH`
+(`keypoint_search_range`).
+
+`feed_rgbd_frame` takes numpy arrays, or tensors on any device: a tensor
+is moved and cast on the device, never copied to the host.
 
 A frame of another size than the map's feed size is resized on the
 device as the JAX facade does with cv2: colour INTER_LINEAR, depth
@@ -34,6 +42,7 @@ engine (`models/segmentation.py`).
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 from typing import Optional, Tuple
 
@@ -66,6 +75,18 @@ from ra_slam_tpu_torch.utils.profiling import TRACE
 # 4.8 m, a disparity of ~8 px; the landmarks of farther, noisier depths
 # drifted a ZED walk to 7-9 cm ATE in 420 pairs, 2-3 cm without them.
 STEREO_DEPTH_THRESHOLD = 40.0
+# The nearest keypoint depth the stereo tracker searches for (m), and its
+# least search range (px), the JAX package's fixed one.
+MIN_KEYPOINT_DEPTH = 0.7
+MIN_KEYPOINT_DISPARITY = 64
+
+
+def keypoint_search_range(focal_x_baseline: float) -> int:
+    """The stereo tracker's keypoint disparity range: out to
+    `MIN_KEYPOINT_DEPTH`, rounded up to a multiple of 32, and at least
+    `MIN_KEYPOINT_DISPARITY`. 64 for the ZED at 672x376 (fx b ~ 40 px m),
+    128 at 1280x720 (~81 px m): keypoint depths from ~0.63 m on both."""
+    return max(MIN_KEYPOINT_DISPARITY, 32 * math.ceil(focal_x_baseline / MIN_KEYPOINT_DEPTH / 32))
 
 
 class RaSlamSystem:
@@ -83,6 +104,9 @@ class RaSlamSystem:
         self.device = resolve_device(device)
         self.alloc_stride = alloc_stride
         tsdf = cfg.tsdf
+        if cfg.dense_stereo is not None and (cfg.depth_camera is not None or cfg.extrinsics is not None):
+            raise ValueError("dense_stereo fuses the tracking camera's own depth: a depth camera or extrinsics "
+                             "does not apply")
         dcam = cfg.depth_camera or cfg.camera
         self.tsdf_cam = PinholeCamera.create(
             dcam.fx, dcam.fy, dcam.cx, dcam.cy, dcam.width, dcam.height,
@@ -114,7 +138,8 @@ class RaSlamSystem:
             self.slam = SlamSystem(
                 track_cam, fcfg=cfg.feature, tcfg=tcfg,
                 loop_max_rmse=3.0 * scale, reloc_max_rmse=3.0 * scale,
-                focal_x_baseline=cam.focal_x_baseline, device=self.device,
+                focal_x_baseline=cam.focal_x_baseline,
+                max_disparity=keypoint_search_range(cam.focal_x_baseline), device=self.device,
             )
         self.last_stats: dict = {}
         self.last_pose: Optional[SE3] = None
@@ -124,6 +149,9 @@ class RaSlamSystem:
         self._lock = threading.RLock()
 
     def _tensor(self, a) -> torch.Tensor:
+        """float32 on the device; a tensor is cast there, with no host copy."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, torch.float32)
         return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
 
     def feed_tracking_frame(self, rgb: np.ndarray, depth: np.ndarray, timestamp: float,
@@ -145,8 +173,8 @@ class RaSlamSystem:
 
     def feed_rgbd_frame(
         self,
-        rgb: np.ndarray,
-        depth: np.ndarray,
+        rgb,
+        depth,
         timestamp: float,
         pose: Optional[SE3] = None,
         ht: Optional[np.ndarray] = None,
@@ -176,8 +204,11 @@ class RaSlamSystem:
                 if self.extrinsics is not None:
                     pose = self.extrinsics @ pose
         with TRACE.span("facade.upload"):
-            rgb = np.asarray(rgb)
-            rgb_t = torch.as_tensor(rgb if rgb.dtype == np.uint8 else rgb.astype(np.float32)).to(self.device)
+            if isinstance(rgb, torch.Tensor):
+                rgb_t = rgb.to(self.device) if rgb.dtype == torch.uint8 else self._tensor(rgb)
+            else:
+                rgb = np.asarray(rgb)
+                rgb_t = torch.as_tensor(rgb if rgb.dtype == np.uint8 else rgb.astype(np.float32)).to(self.device)
             depth_t = self._tensor(depth)
             if rgb_t.shape[:2] != (tsdf.height, tsdf.width):
                 rgb_t = resize_linear(rgb_t, tsdf.width, tsdf.height)

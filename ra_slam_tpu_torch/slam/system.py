@@ -531,8 +531,8 @@ class SlamSystem:
 
     def feed_stereo_frame(
         self,
-        left: np.ndarray,  # [H, W, 3] or [H, W] rectified left
-        right: np.ndarray,  # rectified right
+        left,  # [H, W, 3] or [H, W] rectified left: numpy, or a tensor on any device
+        right,  # rectified right
         timestamp: float,
         frame_id: Optional[int] = None,
         pose_hint: Optional[SE3] = None,
@@ -541,7 +541,11 @@ class SlamSystem:
         depth feeds the RGB-D landmark path (needs `focal_x_baseline`)."""
         if self.focal_x_baseline <= 0:
             raise ValueError("stereo tracking needs focal_x_baseline > 0")
-        img = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
+        def img(a):
+            if isinstance(a, torch.Tensor):  # already on a device: cast there
+                return a.to(self.device, torch.float32)
+            return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
+
         with TRACE.span("slam.upload"):
             l, r = img(left), img(right)
         with TRACE.span("slam.detect"):

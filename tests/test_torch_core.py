@@ -91,10 +91,12 @@ def test_load_yaml_config_matches(style, tmp_path):
 def test_ba_config_and_system_config_ba_match():
     assert dataclasses.asdict(tconfig.BAConfig()) == dataclasses.asdict(jconfig.BAConfig())
     assert dataclasses.asdict(tconfig.SystemConfig().ba) == dataclasses.asdict(jconfig.SystemConfig().ba)
-    # the port's one field more: the depth camera beside the tracking camera
+    # the port's fields more: the depth camera beside the tracking camera,
+    # and the ZED's own dense depth
     assert [f.name for f in dataclasses.fields(tconfig.SystemConfig)] == [
-        f.name for f in dataclasses.fields(jconfig.SystemConfig)] + ["depth_camera"]
-    assert tconfig.SystemConfig().depth_camera is None
+        f.name for f in dataclasses.fields(jconfig.SystemConfig)] + ["depth_camera", "dense_stereo"]
+    default = tconfig.SystemConfig()
+    assert default.depth_camera is None and default.dense_stereo is None
 
 
 def test_se3_as_matrix34_exact():

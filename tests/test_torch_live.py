@@ -4,7 +4,8 @@ CPU: both threads make progress, poses reach the buffer, frames fuse at
 the tracked poses and a preview PNG decodes; a camera fault stops the
 session and is re-raised; `main` wires the rectifier, the config and
 `--device` through to the facade; `ZedDepthCamera` (io/cameras.py)
-computes its depth with `dense_stereo_depth` on its device."""
+computes its depth with `dense_stereo_depth` on its device and hands it
+over there."""
 
 import dataclasses
 
@@ -79,10 +80,11 @@ class _FakeZed:
 def test_zed_depth_camera_computes_dense_depth():
     cam = cameras.ZedDepthCamera(None, FXB, max_disparity=32, device="cpu", cam=_FakeZed())
     (left, right, ts), (rgb, depth, ts2) = cam.get_stereo_and_rgbd_frame()
-    assert ts == ts2 and rgb is left and depth.dtype == np.float32 and depth.shape == left.shape[:2]
+    assert ts == ts2 and rgb is left and isinstance(depth, torch.Tensor) and depth.device == cam.device
+    assert depth.dtype == torch.float32 and depth.shape == left.shape[:2] and left.dtype == torch.uint8
     g = lambda a: rgb_to_gray(torch.as_tensor(a))
     want, valid = dense_stereo_depth(g(left), g(right), FXB, max_disparity=32, max_depth=10.0)
-    np.testing.assert_array_equal(depth, want.numpy())
+    torch.testing.assert_close(depth, want, rtol=0, atol=0)
     assert valid.float().mean() > 0.3
     cam.close()
     assert cam.cam.closed
